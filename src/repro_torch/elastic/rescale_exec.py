@@ -1,0 +1,339 @@
+"""Elastic rescale executor — the paper's Thm.-1/2 promise, executed on the device.
+
+``cep.scale_plan(k_old → k_new)`` names the ≤ k_old + k_new − 1 ordered-edge
+ranges whose owner changes; everything else stays where it is. This module
+applies such a plan directly to the packed ``(k, E_max, 2)`` buffers of
+graphs/engine.py as one slice copy per overlay segment into a fresh buffer —
+so executing a rescale costs O(overlay ranges) copy launches and moves exactly
+the Thm.-2-minimal edge ranges across partitions, instead of re-running any
+partitioner or re-packing from the host.
+
+The JAX package compiles the copies into one jitted program and donates the
+old buffer to it. Here the copies run eagerly on the data's device, the
+result is a fresh tensor and the input stays valid: no donation.
+
+Cost accounting (``RescaleStats``) keeps the JAX package's fields. On a world
+of one rank every migrated row stays on its device, so the ``cross_device_*``
+and ``cross_process_*`` counts are 0:
+
+* ``migrated_*`` — rows whose owner *partition* changes (equals
+  ``ScalePlan.migrated_bytes`` by construction, asserted in tests);
+* ``on_device_edges`` — migrated rows whose partitions share a device;
+* ``local_shift_edges`` — rows that keep their owner but land at a different
+  slot in the padded buffer because the chunk start moved.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..core import cep
+from ..graphs import engine as graph_engine
+from ..kernels import ops
+from ..launch import sharding as SH
+from ..obs import metrics as OM
+from ..obs import trace as OT
+
+__all__ = [
+    "EDGE_BYTES",
+    "ProgramCache",
+    "RescaleStats",
+    "ElasticRescaler",
+    "plan_segments",
+]
+
+EDGE_BYTES = 8  # (src, dst) int32 per packed edge row
+
+
+class ProgramCache:
+    """Bounded LRU of prepared rescale programs keyed by their static
+    shape/device signature. Keys are KIND-prefixed tuples (("migrate", ...))
+    so every program family of one runtime component shares a single cache,
+    and ``program_cache_size`` bounds all of them at once.
+
+    Per-kind hit/miss/eviction ``counters`` make the cache's behavior
+    auditable: a ``get`` returning a program is a hit, a ``get`` returning
+    None a miss (the caller builds and ``put``s), and ``put`` evicting an LRU
+    victim an eviction."""
+
+    def __init__(self, size: int):
+        if size < 1:
+            raise ValueError("program_cache_size must be >= 1")
+        self.size = int(size)
+        self._programs: collections.OrderedDict = collections.OrderedDict()
+        # kind (key[0] for tuple keys, "?" otherwise) → {hits, misses, evictions}
+        self.counters: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._programs)
+
+    def __contains__(self, key) -> bool:
+        return key in self._programs
+
+    def __iter__(self):
+        return iter(self._programs)  # keys, least- to most-recently used
+
+    def _count(self, key, event: str) -> None:
+        kind = str(key[0]) if isinstance(key, tuple) and key else "?"
+        c = self.counters.setdefault(kind, {"hits": 0, "misses": 0, "evictions": 0})
+        c[event] += 1
+
+    def get(self, key):
+        cached = self._programs.get(key)
+        if cached is not None:
+            self._programs.move_to_end(key)
+            self._count(key, "hits")
+        else:
+            self._count(key, "misses")
+        return cached
+
+    def put(self, key, value):
+        self._programs[key] = value
+        while len(self._programs) > self.size:
+            victim, _ = self._programs.popitem(last=False)
+            self._count(victim, "evictions")
+        return value
+
+
+def plan_segments(plan: cep.ScalePlan) -> list:
+    """The plan's overlay as ordered (lo, hi, src_part, dst_part) copy
+    segments — stays spelled src == dst. This is the exact instruction list of
+    the migration; benchmarks reuse it for per-device accounting."""
+    return sorted(
+        [(lo, hi, p, p) for lo, hi, p in plan.stay]
+        + [(lo, hi, s, d) for lo, hi, s, d in plan.moves]
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class RescaleStats:
+    k_old: int
+    k_new: int
+    num_edges: int
+    migrated_edges: int  # cross-partition rows (owner changed)
+    migrated_bytes: int  # migrated_edges · EDGE_BYTES
+    stay_edges: int  # rows whose owner is unchanged
+    local_shift_edges: int  # stays that changed slot inside their partition
+    copy_ops: int  # slice copies the migration issues
+    oracle_checked: bool  # compared bit-exactly vs a from-scratch pack
+    elapsed_s: float  # wall time of the copies, after a device synchronize
+    recheck_s: float  # metrics re-check (+ oracle compare) time
+    devices: int = 1  # graph-axis size the migration ran over
+    cross_device_edges: int = 0  # migrated rows crossing a device boundary
+    cross_device_bytes: int = 0  # cross_device_edges · EDGE_BYTES
+    on_device_edges: int = 0  # migrated rows staying on their device
+    processes: int = 1  # process count behind the graph axis
+    cross_process_edges: int = 0  # migrated rows crossing a PROCESS boundary
+    cross_process_bytes: int = 0  # cross_process_edges · EDGE_BYTES
+
+
+@dataclasses.dataclass(frozen=True)
+class _Program:
+    """A cached migration: its copy segments, the precomputed k_new mask and
+    the stats that depend on the plan alone."""
+
+    segments: tuple
+    row_old: tuple
+    row_new: tuple
+    start_old: tuple
+    start_new: tuple
+    e_max_new: int
+    k_pad_new: int
+    mask_new: torch.Tensor
+    stats: RescaleStats
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ElasticRescaler:
+    """Executes ``cep.ScalePlan``s against a packed ``EngineData`` on its device.
+
+    Prepared migrations (segment list + k_new mask) are cached per
+    (num_edges, k_old, k_new, device) in a bounded LRU
+    (``program_cache_size``), so a controller oscillating between cluster
+    sizes prepares each once. ``verify=True`` re-packs from scratch on the
+    host and asserts bit-equality (the tests' oracle); the metrics re-check
+    (mirrors, replication factor) keeps the returned data self-consistent.
+    """
+
+    def __init__(self, *, program_cache_size: int = 8, tracer=None, metrics_registry=None):
+        self._programs = ProgramCache(program_cache_size)
+        # tracer=None falls back to the process-global tracer (disabled by
+        # default); metrics default to the inert registry.
+        self._tracer = tracer
+        self.metrics = OM.NULL if metrics_registry is None else metrics_registry
+
+    @property
+    def tracer(self):
+        return self._tracer if self._tracer is not None else OT.get_tracer()
+
+    @property
+    def program_cache_size(self) -> int:
+        return self._programs.size
+
+    # ------------------------------------------------------------- planning
+    def plan(self, data, k_new: int) -> cep.ScalePlan:
+        return cep.scale_plan(data.num_edges, data.k, k_new)
+
+    # ------------------------------------------------------------ execution
+    def execute(self, data, plan: cep.ScalePlan, *, verify: bool = False, recheck: bool = True):
+        """Apply ``plan`` to ``data``; returns ``(new_data, RescaleStats)``.
+
+        ``data`` must be CEP-chunked (partition p = ordered range p, as built
+        by ``pack_ordered``). The result's edges and mask are fresh tensors on
+        ``data``'s device; ``data`` is not donated and stays valid.
+
+        ``recheck=True`` recomputes mirrors / replication factor for k_new on
+        the device, through the ``segment_rf`` kernel, with no host readback
+        of the buffers. ``recheck=False`` keeps the pure O(overlay-ranges)
+        migration cost; the returned data then carries ``mirrors=-1``,
+        ``replication_factor=nan`` (engine algorithms never read them).
+        ``verify=True`` reads the input back to the host, packs it from
+        scratch at k_new there and compares byte for byte.
+        """
+        n, k_old, k_new = plan.num_edges, plan.k_old, plan.k_new
+        if data.k != k_old:
+            raise ValueError(f"plan is for k_old={k_old} but engine data has k={data.k}")
+        if data.num_edges != n:
+            raise ValueError(f"plan is for |E|={n} but engine data has |E|={data.num_edges}")
+        device = data.edges.device
+        # Layout check: per-row edge counts reduced on the device; k ints to host.
+        counts = (data.mask > 0).sum(dim=1)
+        sizes_old = torch.from_numpy(np.diff(cep.chunk_bounds(n, k_old))).to(device)
+        if counts.shape != sizes_old.shape or not torch.equal(counts, sizes_old):
+            raise ValueError(
+                "engine data is not CEP-chunked (per-row edge counts "
+                f"{counts.tolist()} != chunk sizes {sizes_old.tolist()}); "
+                "range-copy rescaling only applies to pack_ordered layouts"
+            )
+        if k_new == k_old:
+            # No-op plan: hand the buffers back untouched.
+            stats = RescaleStats(
+                k_old=k_old, k_new=k_new, num_edges=n, migrated_edges=0,
+                migrated_bytes=0, stay_edges=n, local_shift_edges=0,
+                copy_ops=0, oracle_checked=False, elapsed_s=0.0, recheck_s=0.0,
+            )
+            return data, stats
+
+        prog = self._program(n, k_old, k_new, plan, device)
+        _synchronize(device)
+        t0 = time.perf_counter()
+        with self.tracer.span("rescale.migrate"):
+            new_edges = torch.zeros((prog.k_pad_new, prog.e_max_new, 2), dtype=data.edges.dtype, device=device)
+            for lo, hi, s, d in prog.segments:
+                src_rows = data.edges[prog.row_old[s], lo - prog.start_old[s] : hi - prog.start_old[s]]
+                new_edges[prog.row_new[d], lo - prog.start_new[d] : hi - prog.start_new[d]] = src_rows
+            new_mask = prog.mask_new.clone()
+            _synchronize(device)
+        elapsed = time.perf_counter() - t0
+        m = self.metrics
+        m.histogram("rescale.migrate_s").observe(elapsed)
+        m.counter("rescale.migrated_bytes").inc(prog.stats.migrated_bytes)
+        m.counter("rescale.cross_device_bytes").inc(prog.stats.cross_device_bytes)
+        m.counter("rescale.cross_process_bytes").inc(prog.stats.cross_process_bytes)
+
+        # Metrics re-check: recompute quality numbers for the new k (never
+        # carried over from the old pack). A rescale does not change degrees,
+        # so the touched-vertex count comes from them.
+        t1 = time.perf_counter()
+        if recheck:
+            total = int(ops.chunk_vertex_counts_packed(new_edges, new_mask).sum())
+            present = int((data.degrees > 0).sum())
+            mirrors, rf = total - present, float(total) / float(data.num_vertices)
+        else:
+            mirrors, rf = -1, float("nan")
+        new_data = dataclasses.replace(
+            data, edges=new_edges, mask=new_mask, k=k_new, mirrors=mirrors, replication_factor=rf
+        )
+
+        oracle_checked = False
+        if verify:
+            # From-scratch host pack of the ORIGINAL ordered list at k_new — a
+            # mis-routed move segment cannot fool this.
+            src_o, dst_o = graph_engine.unpack_ordered(data)
+            want_edges, want_mask = graph_engine.host_pack(src_o, dst_o, k_new)
+            if not (
+                np.array_equal(want_edges, new_edges.cpu().numpy())
+                and np.array_equal(want_mask, new_mask.cpu().numpy())
+            ):
+                raise AssertionError("executed rescale does not match from-scratch pack")
+            oracle_checked = True
+        recheck_s = time.perf_counter() - t1
+
+        stats = dataclasses.replace(
+            prog.stats, oracle_checked=oracle_checked, elapsed_s=elapsed, recheck_s=recheck_s
+        )
+        return new_data, stats
+
+    def rescale(self, data, k_new: int, *, verify: bool = False, recheck: bool = True):
+        """Plan + execute in one call (what an elastic controller uses)."""
+        return self.execute(data, self.plan(data, k_new), verify=verify, recheck=recheck)
+
+    # -------------------------------------------------------------- interns
+    def _program(self, n: int, k_old: int, k_new: int, plan: cep.ScalePlan, device) -> _Program:
+        key = ("migrate", n, k_old, k_new, device)
+        cached = self._programs.get(key)
+        if cached is not None:
+            return cached
+
+        g = SH.graph_axis_size()
+        bo = cep.chunk_bounds(n, k_old)
+        bn = cep.chunk_bounds(n, k_new)
+        sizes_new = np.diff(bn)
+        e_max_new = int(sizes_new.max())
+        k_pad_new = SH.padded_partition_count(k_new, g)
+        # Row of each partition in the old / new layouts: the identity on a
+        # world of one rank.
+        row_old = tuple(SH.partition_row(p, k_old, g) for p in range(k_old))
+        row_new = tuple(SH.partition_row(p, k_new, g) for p in range(k_new))
+        segments = tuple(plan_segments(plan))
+        local_shift = sum(
+            hi - lo for lo, hi, s, d in segments if s == d and int(bo[s]) != int(bn[s])
+        )
+        cross = sum(
+            hi - lo
+            for lo, hi, s, d in plan.moves
+            if SH.partition_device(s, g) != SH.partition_device(d, g)
+        )
+        stats = RescaleStats(
+            k_old=k_old,
+            k_new=k_new,
+            num_edges=n,
+            migrated_edges=plan.migrated_edges,
+            migrated_bytes=plan.migrated_bytes(EDGE_BYTES),
+            stay_edges=sum(hi - lo for lo, hi, _ in plan.stay),
+            local_shift_edges=int(local_shift),
+            copy_ops=len(segments),
+            oracle_checked=False,
+            elapsed_s=0.0,
+            recheck_s=0.0,
+            devices=g,
+            cross_device_edges=int(cross),
+            cross_device_bytes=int(cross) * EDGE_BYTES,
+            on_device_edges=plan.migrated_edges - int(cross),
+        )
+        mask_rows = np.zeros(k_pad_new, dtype=np.int64)
+        for p in range(k_new):
+            mask_rows[row_new[p]] = sizes_new[p]
+        mask_new = torch.from_numpy(
+            (np.arange(e_max_new)[None, :] < mask_rows[:, None]).astype(np.float32)
+        ).to(device)
+        prog = _Program(
+            segments=segments,
+            row_old=row_old,
+            row_new=row_new,
+            start_old=tuple(int(x) for x in bo[:-1]),
+            start_new=tuple(int(x) for x in bn[:-1]),
+            e_max_new=e_max_new,
+            k_pad_new=k_pad_new,
+            mask_new=mask_new,
+            stats=stats,
+        )
+        return self._programs.put(key, prog)

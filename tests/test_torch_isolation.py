@@ -1,0 +1,53 @@
+"""The port stands alone: importing every repro_torch module (and chip_smoke.py)
+pulls in neither jax nor the JAX package, and the kernel path has no
+fallback handlers."""
+import json
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, json, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path(sys.argv[1], run_name="chip_smoke_import_only")
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, check=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == []
+    assert {
+        "repro_torch.compat", "repro_torch.core.ordering", "repro_torch.kernels.segment_rf",
+        "repro_torch.kernels._build", "repro_torch.graphs.engine", "repro_torch.elastic.rescale_exec",
+        "repro_torch.obs.trace", "repro_torch.launch.sharding",
+    } <= set(result["modules"])
+
+
+def test_no_source_line_imports_jax_or_the_reference():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
+    assert hits == []
+
+
+def test_no_exception_handler_on_the_kernel_path():
+    files = [PORT / "kernels" / n for n in ("_build.py", "segment_rf.py", "ops.py")]
+    files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
+            if re.match(r"^\s*(try|except)\b", line)]
+    assert hits == []
