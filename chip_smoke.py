@@ -1,26 +1,53 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA GPU and check every result.
+"""Drive the PyTorch port's paths on one CUDA GPU and check every result.
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
-    python3 chip_smoke.py --scale 14      # a quicker rehearsal
+    python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
 
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the ``segment_rf`` CUDA kernel from ``src/repro_torch/kernels/csrc``;
+2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``),
+   one ``nvcc`` per source, all started together; print each ``ptxas`` report;
 3. RMAT graph and GEO order on the host;
-4. kernel parity: the kernel equals its plain PyTorch version exactly on
-   random sorted rows (numpy, fixed seed) at the main path's row shapes and
-   at edge cases (rows not a multiple of 8, widths not a multiple of the
-   tile, all-PAD rows, single-id rows, W = 1, a row wider than 65535 tiles);
-5. the main path, with the kernel's launch count set to 0 just before it:
-   CEP packs at k = 4, 16, 64, 128 (RF and mirrors measured on the card,
+4. kernel parity, each kernel against its plain PyTorch version on the card:
+   ``segment_rf`` exactly, at the main path's row shapes and at edge cases
+   (rows not a multiple of 8, widths not a multiple of the tile, all-PAD
+   rows, single-id rows, W = 1, a row wider than 65535 tiles);
+   ``edge_spmv`` at rtol/atol 1e-5 (atomics sum in a varying order) at the
+   JAX tests' shapes, C = 1, W_E = 1, all-padding rows and ids past W_V;
+   ``flash_attention`` at the JAX tests' cases in f32 (2e-5) and bf16 (one
+   bf16 rounding step: 2^-7·|plain| + 1e-4), non-causal, and D = 256 with
+   window and softcap; ``decode_attention`` at
+   the JAX tests' cases, a ``cache_len = 0`` row, softcap and a bf16 cache
+   (1e-4, f32 outputs);
+5. slice 1, the graph path, with every launch count set to 0 just before it:
+   CEP packs at k = 4, 8, 16, 64, 128 (RF and mirrors measured on the card,
    equal to the numpy oracle), rescale 16→17 and 8→12→8 with the
    from-scratch byte check, re-checked RF equal to the oracle, PageRank /
-   SSSP / WCC on the packs at k = 17 and k = 4; the launch count must equal
-   the number of packs plus re-checked rescales;
-6. the kernel's time (CUDA events) beside its memory bound and the plain
-   version's time, at the k = 16 row shape of the real pack.
+   SSSP / WCC on the packs at k = 17 and k = 4; ``segment_rf`` must launch
+   once per pack and re-checked rescale, and no other kernel;
+6. slice 2, the entry points of the other three kernels, with every launch
+   count set to 0 just before it: ``ops.chunked_spmv`` on the GEO-ordered
+   edge list with weights 1/deg[src] and the k = 4 PageRank vector as x —
+   (a) 16 chunks with full windows, (b) 128 chunks with full windows,
+   (c) 16 chunks with 65,536-wide windows (|V|/16) and an out-of-window pass — each
+   held against a float64 numpy oracle at rtol 1e-4; ``ops.flash_attention``
+   at qwen3-8b width (32 heads, 8 KV heads repeated, S 8192, D 128, bf16,
+   causal) and at gemma2-9b local-layer width (16 heads, D 256, window 4096,
+   softcap 50); ``ops.decode_attention`` at qwen3-8b width (batch 8:
+   64 cache rows of 32,768 bf16 positions, Gq 4, D 128); each attention
+   result held against the plain version on the card (flash one group of
+   heads at a time, to bound its memory); ``edge_spmv`` must launch 3 times,
+   ``flash_attention`` 2 and ``decode_attention`` once;
+7. each kernel's time (CUDA events) beside its bound, the plain version's
+   time and, where one PyTorch call computes the same function, that call's
+   time, at the paths' full-size shapes. A bound counts the bytes the
+   function must move from this run's inputs (for ``edge_spmv``: its three
+   edge arrays, its output, and of x only the distinct entries each chunk
+   gathers) and, for flash, the operations of the key positions the masks
+   leave.
 
 Output: phase lines, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -42,9 +69,26 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
 H100_FP32_OPS_PER_S = 67e12  # non-tensor-core f32 rate; the kernel's int compares run on the same ALUs
+H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
+KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention")
 PACK_KS = (4, 16, 64, 128)
 ROW_KS = (4, 8, 12, 16, 17, 64, 128)  # every k whose rows the main path counts
 PAGERANK_RTOL = 1e-4  # CUDA scatter-add uses atomics: f32 sums in varying order
+# f32 sums in varying order (atomics): against a float64 oracle, and kernel
+# against plain version at full size, where a hub vertex sums thousands of terms
+SPMV_RTOL = 1e-4
+SPMV_PARITY_TOL = 1e-5  # kernel against plain version at the small parity shapes
+F32_TOL, DECODE_TOL = 2e-5, 1e-4
+# A bf16 flash output: the kernel and the plain version each round an f32 sum
+# to bf16 (8 significant bits), so they may differ by one rounding step, at
+# most 2^-7 of the value, plus slack for outputs near zero.
+BF16_RTOL, BF16_ATOL = 2**-7, 1e-4
+# Model widths: src/repro/configs/qwen3_8b.py and gemma2_9b.py.
+QWEN3 = dict(heads=32, kv_heads=8, head_dim=128)
+GEMMA2 = dict(heads=16, kv_heads=8, head_dim=256, window=4096, softcap=50.0)
+PREFILL_SEQ = 8192
+DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
+FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
 
 
 def log(msg: str) -> None:
@@ -62,6 +106,31 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float, what: str) -> float:
+    """Assert |got - want| <= atol + rtol·|want| element by element; return
+    the max abs difference."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{what}: {m}")
+    return err
+
+
+def tol_ratio(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol·|want|): at most 1 where ``close`` passes."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def rel_close(got: torch.Tensor, want: torch.Tensor, rtol: float, what: str) -> float:
+    """Assert |got - want| <= rtol·|want| element by element (exact zeros stay
+    zero); return the max relative difference."""
+    diff = (got.double() - want.double()).abs()
+    bad = int((diff > rtol * want.double().abs()).sum())
+    rel = float((diff / want.double().abs()).nan_to_num(0.0, posinf=np.inf).max())
+    check(bad == 0, f"{what}: {bad} elements differ by more than rtol {rtol} (max rel {rel:.3e})")
+    return rel
 
 
 def sorted_rows(rng: np.random.Generator, c: int, w: int, pad_id: int) -> np.ndarray:
@@ -84,6 +153,37 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def prefill_inputs(gen: torch.Generator, dev) -> list:
+    """bf16 q, k, v and the keywords of the two full-size prefill calls:
+    qwen3-8b (causal) and gemma2-9b local layer (window, softcap). K and V
+    are made at the model's KV heads and repeated to its query heads, as the
+    JAX callers do before they call the kernel."""
+    calls = []
+    for cfg, kw in ((QWEN3, dict(causal=True)),
+                    (GEMMA2, dict(causal=True, window=GEMMA2["window"], softcap=GEMMA2["softcap"]))):
+        heads, kv_heads, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
+        qkv = [torch.randn((1, kv_heads if i else heads, PREFILL_SEQ, hd), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for i in range(3)]
+        qkv[1:] = [t.repeat_interleave(heads // kv_heads, dim=1) for t in qkv[1:]]
+        calls.append((qkv, kw))
+    return calls
+
+
+def flash_plain(plain, qkv: list, kw: dict) -> torch.Tensor:
+    """The dense plain version ``plain`` over FLASH_HEAD_GROUP heads a call,
+    to bound the memory of its logits."""
+    return torch.cat([plain(*(t[:, h0:h0 + FLASH_HEAD_GROUP] for t in qkv), **kw)
+                      for h0 in range(0, qkv[0].shape[1], FLASH_HEAD_GROUP)], dim=1)
+
+
+def visible_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs that the masks leave visible in one head."""
+    q = np.arange(s, dtype=np.int64)
+    hi = q + 1 if causal else np.full(s, s)
+    lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(s, dtype=np.int64)
+    return int((hi - lo).sum())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
@@ -99,23 +199,39 @@ def main() -> int:
     from repro_torch.core.graph import rmat_graph
     from repro_torch.elastic.rescale_exec import EDGE_BYTES, ElasticRescaler
     from repro_torch.graphs import engine as E
-    from repro_torch.kernels import _build, ops, segment_rf
+    from repro_torch.kernels import _build, edge_spmv, ops, segment_rf
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import segment_distinct_counts_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    modules = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": fa, "decode_attention": dec}
+
+    def reset_launches() -> None:
+        for m in modules.values():
+            m.launches = 0
+
+    def read_launches() -> dict:
+        return {name: m.launches for name, m in modules.items()}
 
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}")
     phases: dict = {}
+    report = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    lib_path = _build.build("segment_rf")
-    _build.load("segment_rf")
+    lib_paths = _build.build_all(KERNELS)
+    for name in KERNELS:
+        _build.load(name)
     phases["build_s"] = time.perf_counter() - t0
-    log(f"build: {lib_path.name} in {phases['build_s']:.3f} s")
-    build_log = lib_path.with_name(lib_path.name + ".log")
-    if build_log.exists():  # written by the build that made the library
-        log(build_log.read_text().strip())
+    log(f"build: {', '.join(p.name for p in lib_paths)} in {phases['build_s']:.3f} s")
+    for p in lib_paths:
+        build_log = p.with_name(p.name + ".log")
+        if build_log.exists():  # written by the build that made the library
+            log(build_log.read_text().strip())
 
     # ------------------------------------------------------- graph + order
     t0 = time.perf_counter()
@@ -128,12 +244,11 @@ def main() -> int:
     n, v = g.num_edges, g.num_vertices
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
-    # ------------------------------------------------------- kernel parity
+    # ------------------------------------------------ kernel parity: segment_rf
     rng = np.random.default_rng(0)
     cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
     cases += [(13, 1000), (9, 4097), (3, 3 * 4096 + 1), (5, 1), (1, 65535 * 4096 + 4097)]
     t0 = time.perf_counter()
-    max_abs_err = 0
     for c, w in cases:
         rows = sorted_rows(rng, c, w, PAD_ID)
         if (c, w) == (13, 1000):
@@ -144,7 +259,8 @@ def main() -> int:
         got = segment_rf.segment_distinct_counts(t)
         want = segment_rf.segment_distinct_counts_torch(t)
         torch.cuda.synchronize()
-        max_abs_err = max(max_abs_err, int((got.long() - want.long()).abs().max()))
+        report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                                  int((got.long() - want.long()).abs().max()))
         check(torch.equal(got, want), f"segment_rf parity failed at (C, W) = ({c}, {w})")
         if c * w <= 1 << 16:
             check(np.array_equal(got.cpu().numpy(), segment_distinct_counts_ref(rows, PAD_ID)),
@@ -153,9 +269,64 @@ def main() -> int:
         del t, got, want
     all_pad = torch.full((8, 5000), PAD_ID, dtype=torch.int32, device=dev)
     check(int(segment_rf.segment_distinct_counts(all_pad).abs().sum()) == 0, "all-PAD rows must count 0")
+
+    # ------------------------------------------------- kernel parity: edge_spmv
+    for c, we, wv, lo, hi in [(2, 16, 32, 0, 33), (5, 64, 128, 0, 129), (3, 128, 256, 0, 257), (1, 1, 8, 0, 8),
+                              (1, 300, 64, 64, 100), (4, 5000, 512, -3, 600)]:
+        ids = [torch.from_numpy(rng.integers(lo, hi, size=(c, we)).astype(np.int32)).to(dev) for _ in range(2)]
+        w_t = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(dev)
+        x_t = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(dev)
+        got = edge_spmv.spmv_blocked(*ids, w_t, x_t)
+        err = close(got, edge_spmv.spmv_blocked_torch(*ids, w_t, x_t), SPMV_PARITY_TOL, SPMV_PARITY_TOL,
+                    f"edge_spmv parity at (C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi})")
+        if lo >= wv:
+            check(not bool(got.any()), "edge_spmv: all-padding rows must add exactly 0")
+        report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], err)
+        log(f"parity edge_spmv (C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}): max abs err {err:.3e}")
+
+    # ------------------------------------------- kernel parity: flash attention
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flash_cases = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
+                   (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
+                   (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
+                   (1, 2, 512, 256, 256, 50.0, True)]
+    for b, h, s, d, window, softcap, causal in flash_cases:
+        for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL), (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
+            q, k, vv = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype) for _ in range(3))
+            kw = dict(causal=causal, window=window, softcap=softcap)
+            got = fa.flash_attention(q, k, vv, **kw)
+            check(got.dtype == dtype and got.shape == q.shape, "flash_attention: wrong output type or shape")
+            err = close(got, fa.flash_attention_torch(q, k, vv, **kw), rtol, atol,
+                        f"flash_attention parity at {(b, h, s, d)} {dtype} {kw}")
+            report["flash_attention"]["max_abs_err"] = max(report["flash_attention"]["max_abs_err"], err)
+            log(f"parity flash_attention (B, H, S, D) = {(b, h, s, d)} {str(dtype)[6:]} {kw}: max abs err {err:.3e}")
+
+    # ------------------------------------------ kernel parity: decode attention
+    decode_cases = [(2, 4, 512, 64, 128, None, torch.float32, None), (1, 1, 1024, 32, 256, None, torch.float32, None),
+                    (3, 8, 256, 128, 256, None, torch.float32, None),
+                    (3, 4, 512, 64, 128, None, torch.float32, [0, 200, 512]),
+                    (2, 4, 512, 128, 128, 20.0, torch.float32, None),
+                    (4, 4, 2048, 128, 512, None, torch.bfloat16, [1, 700, 1536, 2048])]
+    for bh, gq, s, d, block_s, softcap, kv_dtype, cache in decode_cases:
+        q = torch.randn((bh, gq, d), generator=gen, device=dev)
+        k, vv = (torch.randn((bh, s, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
+        cl = (torch.randint(1, s + 1, (bh,), generator=gen, device=dev, dtype=torch.int32) if cache is None
+              else torch.tensor(cache, dtype=torch.int32, device=dev))
+        got = dec.decode_attention_partials(q, k, vv, cl, block_s=block_s, softcap=softcap)
+        want = dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=block_s, softcap=softcap)
+        what = f"decode_attention parity at {(bh, gq, s, d, block_s)} softcap {softcap} {kv_dtype} cache_len {cache}"
+        err = max(close(gv, wv_, DECODE_TOL, DECODE_TOL, f"{what} ({name})") for name, gv, wv_ in zip("oml", got, want))
+        err = max(err, close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, what))
+        if cache is not None and cache[0] == 0:
+            mean_v = vv[0].float().mean(0).expand(gq, d)
+            close(dec.merge_partials(*got)[0][0], mean_v, DECODE_TOL, DECODE_TOL,
+                  "cache_len = 0 must decode to the mean of v")
+        report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
+        log(f"parity decode_attention (BH, Gq, S, D, block_s) = {(bh, gq, s, d, block_s)} softcap {softcap} "
+            f"{str(kv_dtype)[6:]} cache_len {cache or 'random'}: max abs err {err:.3e}")
     phases["parity_s"] = time.perf_counter() - t0
 
-    # ------------------------------------------------------------ main path
+    # ------------------------------------------------- slice 1: the graph path
     rescaler = ElasticRescaler()
     packs, expected_launches = {}, 0
     oracle_counts = {}
@@ -168,7 +339,7 @@ def main() -> int:
             )
         return oracle_counts[k]
 
-    segment_rf.launches = 0
+    reset_launches()
     t_main = time.perf_counter()
     for k in PACK_KS + (8,):
         t0 = time.perf_counter()
@@ -199,9 +370,8 @@ def main() -> int:
     phases["wcc_x2_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     phases["main_path_s"] = time.perf_counter() - t_main
-    launches = segment_rf.launches
+    slice1_launches = read_launches()
 
-    # ----------------------------------------------------------- the checks
     for k in PACK_KS + (8,):
         rf, mir = oracle(k)
         check(packs[k].replication_factor == rf and packs[k].mirrors == mir,
@@ -226,8 +396,9 @@ def main() -> int:
     log(f"apps: PageRank k=17 vs k=4 max rel diff {pr_rel:.3e} (limit {PAGERANK_RTOL}); "
         f"SSSP from {source}: {it_s4} iterations, {reached} reached, equal; "
         f"WCC: {it_w4} iterations, {components} components, equal")
-    check(launches == expected_launches, f"segment_rf launched {launches} times on the main path, expected {expected_launches}")
-    log(f"segment_rf launches on the main path: {launches} (= {len(packs)} packs + {len(rescales)} re-checked rescales)")
+    check(slice1_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": expected_launches},
+          f"slice 1 launched {slice1_launches}, expected segment_rf {expected_launches} times and nothing else")
+    log(f"slice 1 launches: {slice1_launches} (segment_rf = {len(packs)} packs + {len(rescales)} re-checked rescales)")
 
     # Split of a pack's time: the host part alone (the rest is the copy to
     # the card, the row sort, the kernel and the degree count).
@@ -235,35 +406,207 @@ def main() -> int:
     E.host_pack(src, dst, 16)
     phases["host_pack_k16_s"] = time.perf_counter() - t0
 
-    # ----------------------------------------------- kernel time vs bound
+    # ----------------------------------------------- slice 2: the entry points
+    deg = d4.degrees.cpu().numpy()
+    weights = (1.0 / np.maximum(deg[src], 1.0)).astype(np.float32)  # PageRank's gather: x[src] / deg[src]
+    x_pr = pr4
+    bounds16, bounds128 = np.asarray(cep.chunk_bounds(n, 16)), np.asarray(cep.chunk_bounds(n, 128))
+    narrow = min(1 << 16, v // 16)  # 65,536 at scale 20
+    narrow_starts = [int(np.clip(src[bounds16[i]:bounds16[i + 1]].min(), 0, v - narrow)) for i in range(16)]
+    spmv_calls = {
+        "a": (bounds16, [0] * 16, v),
+        "b": (bounds128, [0] * 128, v),
+        "c": (bounds16, narrow_starts, narrow),
+    }
+    (qwen_qkv, _), (gemma_qkv, gemma_kw) = prefill_inputs(gen, dev)
+    q_heads, kv_heads, hd = QWEN3["heads"], QWEN3["kv_heads"], QWEN3["head_dim"]
+    rep = q_heads // kv_heads
+    bh_dec = DECODE_BATCH * kv_heads
+    dec_q = torch.randn((bh_dec, rep, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+    dec_k, dec_v = (torch.randn((bh_dec, DECODE_CACHE, hd), generator=gen, device=dev, dtype=torch.bfloat16)
+                    for _ in range(2))
+    cache_np = np.random.default_rng(0).integers(1, DECODE_CACHE + 1, size=bh_dec).astype(np.int32)
+    cache_np[0], cache_np[1] = DECODE_CACHE, DECODE_CACHE // 2 + 123  # one full row; one not a multiple of 512
+    dec_len = torch.from_numpy(cache_np).to(dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t_slice2 = time.perf_counter()
+    spmv_out = {}
+    for name, (bounds, starts, size) in spmv_calls.items():
+        t0 = time.perf_counter()
+        spmv_out[name] = ops.chunked_spmv(src, dst, weights, x_pr, bounds, starts, size, device=dev)
+        torch.cuda.synchronize()
+        phases[f"chunked_spmv_{name}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qwen_out = ops.flash_attention(*qwen_qkv, causal=True)
+    torch.cuda.synchronize()
+    phases["flash_qwen3_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gemma_out = ops.flash_attention(*gemma_qkv, **gemma_kw)
+    torch.cuda.synchronize()
+    phases["flash_gemma2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec_out = ops.decode_attention(dec_q, dec_k, dec_v, dec_len, block_s=DECODE_BLOCK)
+    torch.cuda.synchronize()
+    phases["decode_qwen3_s"] = time.perf_counter() - t0
+    phases["slice2_path_s"] = time.perf_counter() - t_slice2
+    slice2_launches = read_launches()
+    expected2 = {"segment_rf": 0, "edge_spmv": len(spmv_calls), "flash_attention": 2, "decode_attention": 1}
+    check(slice2_launches == expected2, f"slice 2 launched {slice2_launches}, expected {expected2}")
+    log(f"slice 2 launches: {slice2_launches}")
+
+    x64 = x_pr.double().cpu().numpy()
+    spmv_oracle = torch.from_numpy(np.bincount(dst, weights=weights.astype(np.float64) * x64[src], minlength=v))
+    spmv_packs = {}  # each call's kernel input, packed once here for its out-of-window count and its timing
+    for name, (bounds, starts, size) in spmv_calls.items():
+        y = spmv_out[name]
+        check(y.shape == (v,) and y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
+              f"chunked_spmv ({name}): not a finite (V,) f32 vector")
+        rel = rel_close(y.cpu(), spmv_oracle, SPMV_RTOL, f"chunked_spmv ({name}) against the float64 oracle")
+        spmv_packs[name] = ops.pack_windows(src, dst, weights, bounds, starts, size)
+        outside = spmv_packs[name][3].size
+        log(f"chunked_spmv ({name}) C={len(starts)} window {size}: max rel diff {rel:.3e} to the float64 oracle "
+            f"(limit {SPMV_RTOL}); {outside} of {n} edges in the out-of-window pass; {phases[f'chunked_spmv_{name}_s']:.3f} s")
+    check(spmv_packs["c"][3].size > 0, "call (c) must have out-of-window edges")
+
+    for what, out, qkv, kw in (("qwen3-8b", qwen_out, qwen_qkv, dict(causal=True)),
+                               ("gemma2-9b local", gemma_out, gemma_qkv, gemma_kw)):
+        check(out.dtype == torch.bfloat16 and out.shape == qkv[0].shape and bool(torch.isfinite(out).all()),
+              f"flash_attention ({what}): not a finite bf16 tensor of q's shape")
+        want = flash_plain(fa.flash_attention_torch, qkv, kw)
+        err = close(out, want, BF16_RTOL, BF16_ATOL, f"flash_attention ({what}) against the plain version")
+        report["flash_attention"]["max_abs_err"] = max(report["flash_attention"]["max_abs_err"], err)
+        log(f"flash_attention ({what}) {tuple(out.shape)}: max abs err {err:.3e} to the plain version "
+            f"(run {FLASH_HEAD_GROUP} heads at a time), {tol_ratio(out, want, BF16_RTOL, BF16_ATOL):.3f} of the "
+            f"limit {BF16_ATOL} + 2^-7·|plain|")
+        del want
+    check(dec_out.shape == (bh_dec, rep, hd) and bool(torch.isfinite(dec_out).all()), "decode: not finite")
+    dec_plain = dec.merge_partials(*dec.decode_attention_partials_torch(
+        dec_q, dec_k, dec_v, dec_len, scale=hd**-0.5, block_s=DECODE_BLOCK))[0]
+    err = close(dec_out, dec_plain, DECODE_TOL, DECODE_TOL, "decode_attention (qwen3-8b) against the plain version")
+    report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
+    log(f"decode_attention (qwen3-8b) q {tuple(dec_q.shape)} cache {tuple(dec_k.shape)} bf16, cache_len "
+        f"{int(dec_len.min())}..{int(dec_len.max())}: max abs err {err:.3e} to the plain version, limit {DECODE_TOL}")
+    del spmv_out, qwen_out, gemma_out, dec_out, dec_plain
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
     c, w = rows16.shape
     check(torch.equal(segment_rf.segment_distinct_counts(rows16), segment_rf.segment_distinct_counts_torch(rows16)),
           "segment_rf parity failed on the real k=16 rows")
-    ms = cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50)
-    plain_ms = cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows16), 20)
     bytes_ms = (c * w * 4 + c * 4) / H100_BYTES_PER_S * 1e3
     ops_ms = 3 * c * w / H100_FP32_OPS_PER_S * 1e3
-    log(f"segment_rf at (C, W) = ({c}, {w}): {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.4f} ms")
+    report["segment_rf"].update(
+        shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
+        plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows16), 20),
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+    del rows16
+
+    spmv_times = []
+    for name, (bounds, starts, size) in spmv_calls.items():
+        src_l, dst_l, wts, _ = spmv_packs.pop(name)
+        args_t = [torch.from_numpy(a).to(dev) for a in (src_l, dst_l, wts)]
+        x_pad = torch.cat([x_pr, x_pr.new_zeros(size)])
+        x_win = x_pad.unfold(0, size, 1)[torch.tensor(starts, device=dev)]
+        got = edge_spmv.spmv_blocked(*args_t, x_win)
+        want = edge_spmv.spmv_blocked_torch(*args_t, x_win)
+        rel = rel_close(got, want, SPMV_RTOL, f"edge_spmv ({name}) against the plain version")
+        report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], float((got - want).abs().max()))
+        # The library yardstick: index_add_ of the precomputed products into
+        # the flat output. It leaves out the gather of x, the product and the
+        # padding filter, which the kernel does.
+        valid = args_t[0] < size
+        flat = (torch.arange(len(starts), device=dev)[:, None] * size + args_t[1])[valid]
+        prod = (args_t[2] * x_win.gather(1, torch.where(valid, args_t[0], 0).long()))[valid]
+        lib_ms = cuda_ms(lambda: torch.zeros(len(starts) * size, device=dev).index_add_(0, flat, prod), 20)
+        c_, w_e = src_l.shape
+        # Bytes the function must move: the three (C, W_E) inputs, the
+        # (C, W_V) output, and of x_win only the entries the gather reads
+        # (the distinct in-window src ids of each chunk).
+        gathered = int(torch.unique((torch.arange(c_, device=dev)[:, None] * size + args_t[0])[valid]).numel())
+        spmv_bytes = 12 * c_ * w_e + 4 * c_ * size + 4 * gathered
+        spmv_times.append(dict(
+            shape=[c_, w_e, size], ms=cuda_ms(lambda: edge_spmv.spmv_blocked(*args_t, x_win), 20),
+            plain_ms=cuda_ms(lambda: edge_spmv.spmv_blocked_torch(*args_t, x_win), 5),
+            bound_ms=spmv_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=lib_ms, x_read=gathered))
+        log(f"edge_spmv ({name}) (C, W_E, W_V) = ({c_}, {w_e}, {size}): {spmv_times[-1]['ms']:.4f} ms, plain "
+            f"{spmv_times[-1]['plain_ms']:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {spmv_times[-1]['bound_ms']:.4f} ms "
+            f"({spmv_bytes} B, {gathered} distinct x entries gathered); max rel diff to the plain version {rel:.3e}")
+        del args_t, x_pad, x_win, got, want, valid, flat, prod
+    report["edge_spmv"].update(spmv_times[0], other_shapes=spmv_times[1:])
+
+    flash_times = []
+    for what, qkv, kw in (("qwen3-8b", qwen_qkv, dict(causal=True)), ("gemma2-9b local", gemma_qkv, gemma_kw)):
+        b, h, s, d = qkv[0].shape
+        flops = 4 * b * h * d * visible_pairs(s, kw["causal"], kw.get("window"))
+        bytes_ms = 4 * qkv[0].numel() * qkv[0].element_size() / H100_BYTES_PER_S * 1e3
+        ops_ms = flops / H100_BF16_OPS_PER_S * 1e3
+        lib_ms = None
+        if kw.get("window") is None and kw.get("softcap") is None:
+            lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*qkv, is_causal=True), 10)
+        flash_times.append(dict(
+            shape=[b, h, s, d], ms=cuda_ms(lambda: fa.flash_attention(*qkv, **kw), 3),
+            plain_ms=cuda_ms(lambda: flash_plain(fa.flash_attention_torch, qkv, kw), 2),
+            bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_ms=lib_ms, gflop=flops / 1e9))
+        ft = flash_times[-1]
+        log(f"flash_attention ({what}) {ft['shape']}: {ft['ms']:.3f} ms, plain {ft['plain_ms']:.3f} ms, "
+            f"SDPA {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {ft['bound_ms']:.4f} ms "
+            f"({ft['gflop']:.1f} GFLOP, {ft['gflop'] / ft['ms']:.2f} TFLOP/s achieved)")
+    report["flash_attention"].update(flash_times[0], other_shapes=flash_times[1:])
+    del qwen_qkv, gemma_qkv
+    torch.cuda.empty_cache()
+
+    dec_bytes = int(cache_np.astype(np.int64).sum()) * hd * 2 * dec_k.element_size()  # K and V below cache_len
+    dec_bytes += dec_q.numel() * dec_q.element_size() + bh_dec * rep * hd * 4 + bh_dec * 4
+    mask = torch.arange(DECODE_CACHE, device=dev)[None, None, :] < dec_len[:, None, None]
+    report["decode_attention"].update(
+        shape=[bh_dec, rep, DECODE_CACHE, hd],
+        ms=cuda_ms(lambda: dec.decode_attention(dec_q, dec_k, dec_v, dec_len, block_s=DECODE_BLOCK), 20),
+        plain_ms=cuda_ms(lambda: dec.merge_partials(*dec.decode_attention_partials_torch(
+            dec_q, dec_k, dec_v, dec_len, scale=hd**-0.5, block_s=DECODE_BLOCK)), 3),
+        bound_ms=dec_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            dec_q, dec_k, dec_v, attn_mask=mask), 20))
+    r = report["decode_attention"]
+    log(f"decode_attention (qwen3-8b) {r['shape']}: {r['ms']:.4f} ms (partials + merge), plain {r['plain_ms']:.4f} ms, "
+        f"SDPA with a cache_len mask {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({dec_bytes / 1e9:.3f} GB below cache_len)")
+    del dec_q, dec_k, dec_v, mask
+
     phases = {k: round(x, 6) for k, x in phases.items()}
     log(json.dumps({"phases": phases, "graph": {"scale": args.scale, "edge_factor": args.edge_factor,
                                                 "num_vertices": v, "num_edges": n}}))
+    sources = {
+        "segment_rf": "src/repro/kernels/segment_rf.py:44",
+        "edge_spmv": "src/repro/kernels/edge_spmv.py:52",
+        "flash_attention": "src/repro/kernels/flash_attention.py:117",
+        "decode_attention": "src/repro/kernels/decode_attention.py:76",
+    }
+    launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_}}
+    kernels = []
+    for name in KERNELS:
+        r = report[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": sources[name],
+            "launches": launches[name],
+            "parity": "exact" if name == "segment_rf" else "allclose",
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "shape": r["shape"],
+            **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
+        })
     log(f"card: {card}")
-    log(json.dumps({"kernels": [{
-        "name": "segment_rf",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/segment_rf.cu",
-        "replaces": "src/repro/kernels/segment_rf.py:44",
-        "launches": launches,
-        "parity": "exact",
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-        "shape": [c, w],
-    }]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

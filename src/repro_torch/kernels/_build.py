@@ -8,6 +8,7 @@ raises with ``nvcc``'s standard error; nothing falls back.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -74,3 +75,22 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib
+
+
+def build_all(names) -> list:
+    """``build`` every kernel in ``names`` at once: one ``nvcc`` per source,
+    all started together. Returns the library paths in the order of ``names``;
+    the first failed build raises."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise if kernel ``name``'s C entry point returned a nonzero ``cudaError_t``."""
+    if err == 0:
+        return
+    fn = getattr(load(name), f"{name}_error_string")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    raise RuntimeError(f"{name} kernel launch failed: cudaError {err} ({fn(err).decode()})")

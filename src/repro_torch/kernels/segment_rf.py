@@ -39,16 +39,6 @@ def segment_distinct_counts_torch(ids_sorted: torch.Tensor) -> torch.Tensor:
     return is_new.sum(dim=1, dtype=torch.int32)
 
 
-def _kernel():
-    lib = _build.load("segment_rf")
-    fn = lib.segment_rf_counts
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.segment_rf_error_string.argtypes = [ctypes.c_int]
-    lib.segment_rf_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 def segment_distinct_counts(ids_sorted: torch.Tensor) -> torch.Tensor:
     """ids_sorted: ``(C, W)`` int32 rows sorted ascending, PAD_ID padded → ``(C,)`` int32 counts."""
     global launches
@@ -68,12 +58,12 @@ def segment_distinct_counts(ids_sorted: torch.Tensor) -> torch.Tensor:
     out = torch.zeros(c, dtype=torch.int32, device=ids_sorted.device)
     if c == 0 or w == 0:
         return out  # no ids: every count is 0 and there is nothing to launch
-    lib = _kernel()
+    fn = _build.load("segment_rf").segment_rf_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     with torch.cuda.device(ids_sorted.device):
         stream = torch.cuda.current_stream(ids_sorted.device).cuda_stream
-        err = lib.segment_rf_counts(ids_sorted.data_ptr(), out.data_ptr(), c, w, stream)
-    if err != 0:
-        msg = lib.segment_rf_error_string(err).decode()
-        raise RuntimeError(f"segment_rf kernel launch failed: cudaError {err} ({msg})")
+        err = fn(ids_sorted.data_ptr(), out.data_ptr(), c, w, stream)
+    _build.check_launch("segment_rf", err)
     launches += 1
     return out

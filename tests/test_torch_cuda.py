@@ -1,5 +1,6 @@
-"""The port on the GPU: the CUDA segment_rf kernel against its plain version,
-and the main path on the card against the same path on the CPU.
+"""The port on the GPU: each CUDA kernel (segment_rf, edge_spmv,
+flash_attention, decode_attention) against its plain version, and the paths
+on the card against the same paths on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs where only PyTorch is installed:
@@ -11,11 +12,13 @@ import pytest
 import torch
 
 from repro_torch.compat import PAD_ID
-from repro_torch.core import metrics, ordering
+from repro_torch.core import cep, metrics, ordering
 from repro_torch.core.graph import rmat_graph
 from repro_torch.elastic.rescale_exec import ElasticRescaler
 from repro_torch.graphs import engine as E
-from repro_torch.kernels import ops, ref, segment_rf
+from repro_torch.kernels import decode_attention as dec
+from repro_torch.kernels import edge_spmv, ops, ref, segment_rf
+from repro_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +29,7 @@ SHAPES = [(4, 8), (16, 64), (7, 40), (33, 24), (13, 1000), (9, 4097), (5, 1), (1
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the segment_rf kernel runs only on the GPU")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the GPU")
     return torch.device("cuda")
 
 
@@ -105,3 +108,91 @@ def test_apps_on_cuda_match_cpu(cuda, ordered):
     for app in (E.sssp, E.wcc):
         (x_gpu, it_gpu), (x_cpu, it_cpu) = app(gpu), app(cpu)
         assert it_gpu == it_cpu and torch.equal(x_gpu.cpu(), x_cpu)
+
+
+# ----------------------------------------------------------------- edge_spmv
+# The kernel adds with atomics: its f32 sums run in an order that changes
+# from run to run, hence 1e-5 and not equality.
+@pytest.mark.parametrize("c,we,wv", [(2, 16, 32), (5, 64, 128), (3, 128, 256), (1, 1, 8), (4, 50, 16),
+                                     (16, 200_000, 1 << 16)])
+def test_edge_spmv_kernel_matches_plain_version(cuda, c, we, wv):
+    rng = np.random.default_rng(c + we)
+    ids = [torch.from_numpy(rng.integers(-2, wv + 3, size=(c, we)).astype(np.int32)).to(cuda) for _ in range(2)]
+    w = torch.from_numpy(rng.random((c, we)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.random((c, wv)).astype(np.float32)).to(cuda)
+    before = edge_spmv.launches
+    got = edge_spmv.spmv_blocked(*ids, w, x)
+    torch.cuda.synchronize()
+    assert edge_spmv.launches == before + 1
+    torch.testing.assert_close(got, edge_spmv.spmv_blocked_torch(*ids, w, x), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("window", ["full", 32])
+def test_chunked_spmv_on_cuda_matches_cpu(cuda, ordered, window):
+    g, s, d = ordered
+    v = g.num_vertices
+    bounds = np.asarray(cep.chunk_bounds(len(s), 8))
+    if window == "full":
+        starts, size = [0] * 8, v
+    else:
+        starts, size = [int(np.clip(s[bounds[i]:bounds[i + 1]].min(), 0, v - 32)) for i in range(8)], 32
+    x = np.random.default_rng(0).random(v).astype(np.float32)
+    w = np.random.default_rng(1).random(len(s)).astype(np.float32)
+    before = edge_spmv.launches
+    got = ops.chunked_spmv(s, d, w, x, bounds, starts, size)
+    assert edge_spmv.launches == before + 1 and got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), ops.chunked_spmv(s, d, w, x, bounds, starts, size, device="cpu"),
+                               rtol=1e-5, atol=1e-6)
+
+
+# ----------------------------------------------------------- flash attention
+FLASH_CASES = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
+               (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
+               (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
+               (1, 2, 512, 256, 100, 50.0, True), (1, 1, 100, 32, 7, None, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,s,d,window,softcap,causal", FLASH_CASES)
+def test_flash_kernel_matches_plain_version(cuda, b, h, s, d, window, softcap, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b * 1000 + s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype) for _ in range(3))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and got.dtype == dtype
+    # Both sides are f32 sums rounded to the output type: in bf16 they may
+    # differ by one rounding step (2^-7 of the value), plus slack near zero.
+    rtol, atol = (2**-7, 1e-4) if dtype == torch.bfloat16 else (2e-5, 2e-5)
+    torch.testing.assert_close(got.float(), fa.flash_attention_torch(q, k, v, **kw).float(), rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------- decode attention
+DECODE_CASES = [(2, 4, 512, 64, 128, None, "f32", None), (1, 1, 1024, 32, 256, None, "f32", None),
+                (3, 8, 256, 128, 256, None, "f32", [0, 100, 256]), (2, 4, 512, 128, 128, 20.0, "f32", None),
+                (4, 4, 2048, 128, 512, None, "bf16", [1, 700, 1536, 2048]), (2, 5, 256, 256, 64, None, "bf16", None)]
+
+
+@pytest.mark.parametrize("bh,gq,s,d,block_s,softcap,kv_dtype,cache", DECODE_CASES)
+def test_decode_kernel_matches_plain_version(cuda, bh, gq, s, d, block_s, softcap, kv_dtype, cache):
+    gen = torch.Generator(device=cuda).manual_seed(bh * 100 + s)
+    kvt = torch.bfloat16 if kv_dtype == "bf16" else torch.float32
+    q = torch.randn((bh, gq, d), generator=gen, device=cuda)
+    k, v = (torch.randn((bh, s, d), generator=gen, device=cuda).to(kvt) for _ in range(2))
+    cl = torch.randint(1, s + 1, (bh,), generator=gen, device=cuda, dtype=torch.int32) if cache is None else \
+        torch.tensor(cache, dtype=torch.int32, device=cuda)
+    before = dec.launches
+    got = dec.decode_attention_partials(q, k, v, cl, block_s=block_s, softcap=softcap)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1
+    want = dec.decode_attention_partials_torch(q, k, v, cl, scale=d**-0.5, block_s=block_s, softcap=softcap)
+    for name, g_, w_ in zip("oml", got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4, msg=name)
+    torch.testing.assert_close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], rtol=1e-4, atol=1e-4)
+
+
+def test_decode_wrapper_rejects_tiles_beyond_shared_memory(cuda):
+    q, k = torch.zeros((1, 8, 64), device=cuda), torch.zeros((1, 1 << 14, 64), device=cuda)
+    with pytest.raises(ValueError):
+        dec.decode_attention_partials(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda), block_s=1 << 14)

@@ -1,6 +1,6 @@
 """The port stands alone: importing every repro_torch module (and chip_smoke.py)
-pulls in neither jax nor the JAX package, and the kernel path has no
-fallback handlers."""
+pulls in neither jax nor the JAX package, no line of the port or its scripts
+imports either, and the kernel path has no fallback handlers."""
 import json
 import os
 import pathlib
@@ -34,19 +34,21 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert {
         "repro_torch.compat", "repro_torch.core.ordering", "repro_torch.kernels.segment_rf",
         "repro_torch.kernels._build", "repro_torch.graphs.engine", "repro_torch.elastic.rescale_exec",
-        "repro_torch.obs.trace", "repro_torch.launch.sharding",
+        "repro_torch.obs.trace", "repro_torch.launch.sharding", "repro_torch.kernels.edge_spmv",
+        "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
     } <= set(result["modules"])
 
 
 def test_no_source_line_imports_jax_or_the_reference():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert hits == []
 
 
 def test_no_exception_handler_on_the_kernel_path():
-    files = [PORT / "kernels" / n for n in ("_build.py", "segment_rf.py", "ops.py")]
+    files = [PORT / "kernels" / n for n in ("_build.py", "segment_rf.py", "ops.py", "edge_spmv.py",
+                                             "flash_attention.py", "decode_attention.py")]
     files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if re.match(r"^\s*(try|except)\b", line)]
