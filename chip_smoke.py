@@ -10,6 +10,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
+   check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
+   instantiation issues HGMMA;
 3. RMAT graph and GEO order on the host;
 4. kernel parity, each kernel against its plain PyTorch version on the card:
    ``segment_rf`` exactly, at the main path's row shapes and at edge cases
@@ -17,9 +19,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    rows, single-id rows, W = 1, a row wider than 65535 tiles);
    ``edge_spmv`` at rtol/atol 1e-5 (atomics sum in a varying order) at the
    JAX tests' shapes, C = 1, W_E = 1, all-padding rows and ids past W_V;
-   ``flash_attention`` at the JAX tests' cases in f32 (2e-5) and bf16 (one
-   bf16 rounding step: 2^-7·|plain| + 1e-4), non-causal, and D = 256 with
-   window and softcap; ``decode_attention`` at
+   ``flash_attention`` at the JAX tests' cases in f32 (2e-5, the CUDA-core
+   kernel) and bf16 (one bf16 rounding step: 2^-7·|plain| + 1e-4, the
+   tensor-core kernel), non-causal, D = 256 with window and softcap, and
+   ragged S at D 128 and 256; ``decode_attention`` at
    the JAX tests' cases, a ``cache_len = 0`` row, softcap and a bf16 cache
    (1e-4, f32 outputs);
 5. slice 1, the graph path, with every launch count set to 0 just before it:
@@ -39,8 +42,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    softcap 50); ``ops.decode_attention`` at qwen3-8b width (batch 8:
    64 cache rows of 32,768 bf16 positions, Gq 4, D 128); each attention
    result held against the plain version on the card (flash one group of
-   heads at a time, to bound its memory); ``edge_spmv`` must launch 3 times,
-   ``flash_attention`` 2 and ``decode_attention`` once;
+   heads at a time, to bound its memory; SDPA's ratio to the same limit at
+   qwen3-8b width is printed as a reading); ``edge_spmv`` must launch 3
+   times, ``flash_attention`` 2, both on its tensor-core kernel
+   (``tc_launches``), and ``decode_attention`` once;
 7. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes. A bound counts the bytes the
@@ -211,6 +216,7 @@ def main() -> int:
     def reset_launches() -> None:
         for m in modules.values():
             m.launches = 0
+        fa.tc_launches = 0
 
     def read_launches() -> dict:
         return {name: m.launches for name, m in modules.items()}
@@ -232,6 +238,14 @@ def main() -> int:
         build_log = p.with_name(p.name + ".log")
         if build_log.exists():  # written by the build that made the library
             log(build_log.read_text().strip())
+    # The bf16 flash kernel must run on the tensor cores: HGMMA in its SASS.
+    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_paths[KERNELS.index("flash_attention")])],
+                          capture_output=True, text=True, check=True).stdout
+    hgmma = {f.split()[0]: f.count("HGMMA") for f in sass.split("Function : ")[1:] if "flash_tc_kernel" in f.split()[0]}
+    check(len(hgmma) == len(fa.HEAD_DIMS) and all(hgmma.values()),
+          f"flash_attention: every tensor-core instantiation must issue HGMMA, got {hgmma}")
+    log(f"flash_attention SASS: HGMMA instructions per tensor-core instantiation {sorted(hgmma.values())}")
 
     # ------------------------------------------------------- graph + order
     t0 = time.perf_counter()
@@ -289,13 +303,17 @@ def main() -> int:
     flash_cases = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
                    (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
                    (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
-                   (1, 2, 512, 256, 256, 50.0, True)]
+                   (1, 2, 512, 256, 256, 50.0, True), (1, 2, 1000, 128, None, None, True),
+                   (1, 1, 777, 256, 300, 50.0, True)]
     for b, h, s, d, window, softcap, causal in flash_cases:
         for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL), (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
             q, k, vv = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype) for _ in range(3))
             kw = dict(causal=causal, window=window, softcap=softcap)
+            tc_before = fa.tc_launches
             got = fa.flash_attention(q, k, vv, **kw)
             check(got.dtype == dtype and got.shape == q.shape, "flash_attention: wrong output type or shape")
+            check(fa.tc_launches == tc_before + (dtype == torch.bfloat16),
+                  "flash_attention: bf16 must run the tensor-core kernel and f32 the CUDA-core kernel")
             err = close(got, fa.flash_attention_torch(q, k, vv, **kw), rtol, atol,
                         f"flash_attention parity at {(b, h, s, d)} {dtype} {kw}")
             report["flash_attention"]["max_abs_err"] = max(report["flash_attention"]["max_abs_err"], err)
@@ -453,8 +471,10 @@ def main() -> int:
     phases["slice2_path_s"] = time.perf_counter() - t_slice2
     slice2_launches = read_launches()
     expected2 = {"segment_rf": 0, "edge_spmv": len(spmv_calls), "flash_attention": 2, "decode_attention": 1}
+    slice2_tc = fa.tc_launches
     check(slice2_launches == expected2, f"slice 2 launched {slice2_launches}, expected {expected2}")
-    log(f"slice 2 launches: {slice2_launches}")
+    check(slice2_tc == 2, f"slice 2's two bf16 flash calls ran the tensor-core kernel {slice2_tc} times, expected 2")
+    log(f"slice 2 launches: {slice2_launches}; flash_attention on the tensor cores: {slice2_tc}")
 
     x64 = x_pr.double().cpu().numpy()
     spmv_oracle = torch.from_numpy(np.bincount(dst, weights=weights.astype(np.float64) * x64[src], minlength=v))
@@ -480,6 +500,12 @@ def main() -> int:
         log(f"flash_attention ({what}) {tuple(out.shape)}: max abs err {err:.3e} to the plain version "
             f"(run {FLASH_HEAD_GROUP} heads at a time), {tol_ratio(out, want, BF16_RTOL, BF16_ATOL):.3f} of the "
             f"limit {BF16_ATOL} + 2^-7·|plain|")
+        if kw.get("window") is None and kw.get("softcap") is None:
+            # A reading, not a gate: SDPA rounds P to bf16 once before P·V.
+            sdpa = torch.nn.functional.scaled_dot_product_attention(*qkv, is_causal=True)
+            log(f"SDPA ({what}): {tol_ratio(sdpa, want, BF16_RTOL, BF16_ATOL):.3f} of the same limit "
+                f"(max abs err {float((sdpa.float() - want.float()).abs().max()):.3e}; a reading, not a check)")
+            del sdpa
         del want
     check(dec_out.shape == (bh_dec, rep, hd) and bool(torch.isfinite(dec_out).all()), "decode: not finite")
     dec_plain = dec.merge_partials(*dec.decode_attention_partials_torch(
@@ -547,7 +573,7 @@ def main() -> int:
         if kw.get("window") is None and kw.get("softcap") is None:
             lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*qkv, is_causal=True), 10)
         flash_times.append(dict(
-            shape=[b, h, s, d], ms=cuda_ms(lambda: fa.flash_attention(*qkv, **kw), 3),
+            shape=[b, h, s, d], ms=cuda_ms(lambda: fa.flash_attention(*qkv, **kw), 10),
             plain_ms=cuda_ms(lambda: flash_plain(fa.flash_attention_torch, qkv, kw), 2),
             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             library_ms=lib_ms, gflop=flops / 1e9))
@@ -603,6 +629,7 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "shape": r["shape"],
+            **({"tc_launches": slice2_tc} if name == "flash_attention" else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
         })
     log(f"card: {card}")

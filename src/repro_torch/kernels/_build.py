@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled at first
 use into ``build/repro_torch_kernels/<name>-<hash>.so`` under the checkout's
-root, keyed by a hash of the source and the compiler flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. A failed build
+root, keyed by a hash of the source, of every header ``csrc/*.cuh`` and of
+the compiler flags, so an edited source or header is rebuilt and an
+unchanged one is loaded as it is. A failed build
 raises with ``nvcc``'s standard error; nothing falls back.
 """
 from __future__ import annotations
@@ -42,8 +43,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

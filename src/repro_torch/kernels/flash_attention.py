@@ -3,17 +3,22 @@ logit soft-capping, as a CUDA kernel.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``flash_attention``, body ``_flash_kernel``) with the hand-written CUDA
-kernel ``csrc/flash_attention.cu``, built for ``sm_90a`` and called through
+source ``csrc/flash_attention.cu``, built for ``sm_90a`` and called through
 ``ctypes``. q, k and v are ``(B, H, S, D)`` of one type, f32 or bf16, with k
-and v already repeated to H heads by the caller (GQA); the math is f32 and the
-output has the input's type. Masked logits are ``-1e30``, as in the TPU kernel.
+and v already repeated to H heads by the caller (GQA); the softmax is f32 and
+the output has the input's type. Masked logits are ``-1e30``, as in the TPU
+kernel.
 
-The CUDA kernel picks its own tiles (64 query rows, 32 keys) and takes any
-sequence length; the JAX kernel's ``block_q``/``block_kv`` have no
-counterpart.
+The source holds two kernels, chosen by dtype: bf16 runs on the tensor cores
+(``wgmma``, K/V tiles brought in by TMA, P·V as two bf16 products P_hi + P_lo
+so that the result stays within one bf16 rounding step of f32); f32 runs on
+the CUDA cores, since no tensor-core format keeps an f32 input's accuracy.
+Both pick their own tiles and take any sequence length; the JAX kernel's
+``block_q``/``block_kv`` have no counterpart.
 
 Dispatch: tensors on the CPU go to the plain version ``flash_attention_torch``;
-CUDA tensors launch the kernel or raise. ``launches`` counts kernel launches.
+CUDA tensors launch the kernel or raise. ``launches`` counts kernel launches,
+``tc_launches`` those of the tensor-core kernel among them.
 """
 from __future__ import annotations
 
@@ -23,13 +28,14 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_torch", "launches"]
+__all__ = ["NEG_INF", "flash_attention", "flash_attention_torch", "launches", "tc_launches"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0  # kernel launches by flash_attention since import (or a reset)
+tc_launches = 0  # those of them that ran the tensor-core (bf16) kernel
 
 
 def flash_attention_torch(q, k, v, *, scale=None, causal=True, window=None, softcap=None) -> torch.Tensor:
@@ -61,7 +67,7 @@ def flash_attention(
     softcap: float | None = None,
 ) -> torch.Tensor:
     """q, k, v ``(B, H, S, D)`` → ``(B, H, S, D)`` in ``q.dtype``."""
-    global launches
+    global launches, tc_launches
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_attention takes q, k, v of one shape (B, H, S, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -83,6 +89,8 @@ def flash_attention(
         raise ValueError(f"the CUDA kernel takes head dimensions {HEAD_DIMS}, got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention takes bf16 q, k, v whose data start on a 16-byte boundary (TMA)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -90,6 +98,8 @@ def flash_attention(
         _launch(_build.load("flash_attention"), q, k, v, out, scale, causal, window, softcap,
                 torch.cuda.current_stream(q.device).cuda_stream)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        tc_launches += 1
     return out
 
 

@@ -200,3 +200,121 @@ def test_decode_rejects_what_jax_asserts(kind, exc):
     }[kind]
     with pytest.raises(exc):
         ops.decode_attention(*args, **kw)
+
+
+# ------------------------------------- the tensor-core kernel's arithmetic
+# csrc/flash_attention.cu runs bf16 inputs on the tensor cores, which cannot
+# run here. This emulation repeats its arithmetic on the CPU: 128-row query
+# blocks of two 64-row warpgroups, each over the 64-key tiles from the
+# block's window start that hold a key one of its rows sees; S = Q·K^T and
+# the softmax in f32; l from the f32 P; P·V as P_hi·V + P_lo·V with
+# P_hi = bf16(P), P_lo = bf16(P - P_hi); the output rounded to bf16. The
+# limit is the smoke's: one bf16 rounding step of the reference.
+TC_ROWS, TC_KEYS, TC_BLOCK = 64, 64, 128
+BF16_RTOL, BF16_ATOL = 2**-7, 1e-4
+
+
+def _tc_emulation(q, k, v, *, causal, window, softcap, split=True):
+    """q, k, v: f32 tensors (B, H, S, D) holding bf16 values."""
+    s, d = q.shape[-2:]
+    scale = d**-0.5
+    out = torch.zeros(q.shape, dtype=torch.bfloat16)
+
+    def tile(x, lo):  # 64 rows from lo, zero past S (as TMA fills them)
+        t = x[..., lo:lo + 64, :]
+        return torch.nn.functional.pad(t, (0, 0, 0, 64 - t.shape[-2]))
+
+    for q0 in range(0, s, TC_BLOCK):
+        kv_end = min(s, q0 + TC_BLOCK) if causal else s
+        kv_begin = (max(0, q0 - window + 1) // TC_KEYS) * TC_KEYS if window else 0
+        n_tiles = -(-(kv_end - kv_begin) // TC_KEYS)
+        for r0 in range(q0, min(q0 + TC_BLOCK, s), TC_ROWS):
+            r_last = min(r0 + TC_ROWS, s) - 1
+            t_lo, t_hi = 0, n_tiles - 1
+            if causal:
+                t_hi = min(t_hi, (r_last - kv_begin) // TC_KEYS)
+            if window:
+                t_lo = (max(0, r0 - window + 1) - kv_begin) // TC_KEYS
+            rows = torch.arange(r0, r0 + TC_ROWS)[:, None]
+            qt = tile(q, r0)
+            m = torch.full(q.shape[:-2] + (TC_ROWS, 1), NEG_INF_F32)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(q.shape[:-2] + (TC_ROWS, d))
+            for t in range(t_lo, t_hi + 1):
+                k0 = kv_begin + t * TC_KEYS
+                keys = torch.arange(k0, k0 + TC_KEYS)[None, :]
+                sc = (qt @ tile(k, k0).transpose(-1, -2)) * scale
+                if softcap:
+                    sc = softcap * torch.tanh(sc / softcap)
+                visible = torch.ones(TC_ROWS, TC_KEYS, dtype=torch.bool)
+                if causal:
+                    visible &= keys <= rows
+                if window:
+                    visible &= keys > rows - window
+                sc = torch.where(visible, sc, NEG_INF_F32)
+                sc = torch.where(keys >= s, -torch.inf, sc)
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                vt = tile(v, k0)
+                p_hi = p.bfloat16().float()
+                pv = p_hi @ vt + ((p - p_hi).bfloat16().float() @ vt if split else 0.0)
+                acc, m = acc * alpha + pv, m_new
+            n = min(TC_ROWS, s - r0)
+            out[..., r0:r0 + n, :] = (acc / l.clamp_min(1e-30))[..., :n, :].bfloat16()
+    return out
+
+
+NEG_INF_F32 = torch.tensor(fa.NEG_INF, dtype=torch.float32)
+
+
+def _bf16_inputs(shape, seed):
+    """bf16 q, k, v from numpy normals, as JAX arrays and as f32 torch tensors."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        a = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16().float()
+        out.append((jnp.asarray(a.numpy(), jnp.bfloat16), a))
+    return out
+
+
+def _limit_ratio(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float((np.abs(got - want) / (BF16_ATOL + BF16_RTOL * np.abs(want))).max())
+
+
+def _jax_block(s):
+    return next(b for b in (128, 100, 96, 64, 40, 32) if s % b == 0)
+
+
+@pytest.mark.parametrize(
+    "b,h,s,d,causal,window,softcap",
+    [
+        (1, 2, 256, 64, True, None, None),
+        (1, 1, 200, 64, True, 70, None),     # S not a multiple of the key tile; a window
+        (1, 1, 256, 256, True, 64, 50.0),    # gemma2-9b's head_dim, window and softcap
+        (1, 2, 160, 256, True, None, 30.0),  # D 256, ragged S, softcap
+        (1, 1, 192, 64, False, None, None),  # no causal mask
+        (2, 1, 320, 64, True, 100, None),    # a window that starts inside a 128-row block
+    ],
+)
+def test_tensor_core_arithmetic_matches_pallas_kernel(b, h, s, d, causal, window, softcap):
+    (jq, q), (jk, k), (jv, v) = _bf16_inputs((b, h, s, d), seed=s + d)
+    blk = _jax_block(s)
+    want = J_fa.flash_attention(jq, jk, jv, causal=causal, window=window, softcap=softcap, block_q=blk,
+                                block_kv=blk)
+    got = _tc_emulation(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert _limit_ratio(got.float().numpy(), jnp.asarray(want, jnp.float32)) <= 1.0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rounding_p_once_fails_the_limit_and_the_split_passes(seed):
+    """Why the kernel computes P·V as two bf16 products: at S 512, D 64,
+    causal, rounding P to bf16 once misses one bf16 step of the reference
+    several times over; P_hi + P_lo stays within it."""
+    (jq, q), (jk, k), (jv, v) = _bf16_inputs((1, 2, 512, 64), seed=seed)
+    want = jnp.asarray(J_fa.flash_attention(jq, jk, jv, causal=True), jnp.float32)
+    once = _tc_emulation(q, k, v, causal=True, window=None, softcap=None, split=False)
+    split = _tc_emulation(q, k, v, causal=True, window=None, softcap=None)
+    assert _limit_ratio(once.float().numpy(), want) > 4.0
+    assert _limit_ratio(split.float().numpy(), want) <= 1.0

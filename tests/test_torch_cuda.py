@@ -149,7 +149,8 @@ def test_chunked_spmv_on_cuda_matches_cpu(cuda, ordered, window):
 FLASH_CASES = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
                (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
                (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
-               (1, 2, 512, 256, 100, 50.0, True), (1, 1, 100, 32, 7, None, True)]
+               (1, 2, 512, 256, 100, 50.0, True), (1, 1, 100, 32, 7, None, True),
+               (1, 2, 1000, 128, None, None, True), (1, 1, 777, 256, 300, 50.0, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -158,10 +159,12 @@ def test_flash_kernel_matches_plain_version(cuda, b, h, s, d, window, softcap, c
     gen = torch.Generator(device=cuda).manual_seed(b * 1000 + s + d)
     q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda).to(dtype) for _ in range(3))
     kw = dict(causal=causal, window=window, softcap=softcap)
-    before = fa.launches
+    before, tc_before = fa.launches, fa.tc_launches
     got = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert fa.launches == before + 1 and got.dtype == dtype
+    # bf16 runs on the tensor-core kernel, f32 on the CUDA-core kernel.
+    assert fa.tc_launches == tc_before + (dtype == torch.bfloat16)
     # Both sides are f32 sums rounded to the output type: in bf16 they may
     # differ by one rounding step (2^-7 of the value), plus slack near zero.
     rtol, atol = (2**-7, 1e-4) if dtype == torch.bfloat16 else (2e-5, 2e-5)

@@ -5,13 +5,17 @@
 
 Needs a CUDA device and ``nvcc``. Builds, in a temporary directory, copies
 of ``src/repro_torch/kernels/csrc/flash_attention.cu`` with one planted
-fault each:
+fault each in the consumer loop of its tensor-core (bf16) kernel, where a
+consumer warpgroup decides whether to compute a key tile:
 
-- ``skip-last-tile``: every query tile skips the last key tile it would
-  visit (under the causal mask, the tile that holds the diagonal);
+- ``skip-last-tile``: every 64-row query tile skips the last key tile it
+  would compute (under the causal mask, the tile that holds the diagonal);
 - ``skip-last-tile-late``: only the query tiles in the second half of the
   sequence skip it, where a row attends over thousands of keys and its
   output is small.
+
+A skipped tile is still waited for and released, so the producer and the
+consumers stay in step and a faulty copy finishes.
 
 It runs the kernel and each faulty copy at the smoke's two full-size
 prefill shapes (qwen3-8b and gemma2-9b local layer, bf16, inputs made by
@@ -35,24 +39,26 @@ import tempfile
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-LOOP = "    for (int k0 = kv_begin; k0 < kv_end; k0 += kBKV) {"
+CSRC = ROOT / "src/repro_torch/kernels/csrc"
+LOOP = "      const bool skip = t < t_lo || t > t_hi;"
 FAULTS = {
-    "skip-last-tile": "    for (int k0 = kv_begin; k0 < kv_end - kBKV; k0 += kBKV) {",
-    "skip-last-tile-late": "    for (int k0 = kv_begin; k0 < kv_end - (2 * q0 >= s_len ? kBKV : 0); k0 += kBKV) {",
+    "skip-last-tile": "      const bool skip = t < t_lo || t >= t_hi;",
+    "skip-last-tile-late": "      const bool skip = t < t_lo || t > t_hi - (2 * q0 >= s_len ? 1 : 0);",
 }
 JAX_TESTS_BF16_TOL = 2e-2
 
 
 def build_faulty(tmp: pathlib.Path, nvcc: str, flags) -> dict:
     """One library per planted fault, all built at once."""
-    source = (ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
+    source = (CSRC / "flash_attention.cu").read_text()
     if source.count(LOOP) != 1:
-        raise RuntimeError("the kv-tile loop of flash_attention.cu is not where this script plants its faults")
+        raise RuntimeError("the key-tile test of flash_attention.cu is not where this script plants its faults")
 
     def build(name: str) -> pathlib.Path:
         cu, so = tmp / f"{name}.cu", tmp / f"{name}.so"
         cu.write_text(source.replace(LOOP, FAULTS[name]))
-        subprocess.run([nvcc, *flags, "-o", str(so), str(cu)], check=True, capture_output=True, text=True)
+        subprocess.run([nvcc, *flags, "-I", str(CSRC), "-o", str(so), str(cu)], check=True, capture_output=True,
+                       text=True)
         return so
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(FAULTS)) as pool:
