@@ -18,13 +18,17 @@ Phases, in order; any failure raises and the script exits nonzero:
    (rows not a multiple of 8, widths not a multiple of the tile, all-PAD
    rows, single-id rows, W = 1, a row wider than 65535 tiles);
    ``edge_spmv`` at rtol/atol 1e-5 (atomics sum in a varying order) at the
-   JAX tests' shapes, C = 1, W_E = 1, all-padding rows and ids past W_V;
+   JAX tests' shapes, C = 1, W_E = 1, all-padding rows, ids past W_V, a hub
+   row (one dst in every slot: one run across warps and blocks), alternating
+   dst, sorted dst at an odd W_E, and more chunks than the grid has blocks,
+   so that blocks stride over them;
    ``flash_attention`` at the JAX tests' cases in f32 (2e-5, the CUDA-core
    kernel) and bf16 (one bf16 rounding step: 2^-7·|plain| + 1e-4, the
-   tensor-core kernel), non-causal, D = 256 with window and softcap, and
-   ragged S at D 128 and 256; ``decode_attention`` at
-   the JAX tests' cases, a ``cache_len = 0`` row, softcap and a bf16 cache
-   (1e-4, f32 outputs);
+   tensor-core kernel), non-causal, D = 256 with window and softcap, ragged
+   S at D 128 and 256, and D = 96 (phi-3-vision's head_dim, zero-padded to
+   128 by the wrapper) causal and windowed with softcap; ``decode_attention`` at
+   the JAX tests' cases, a ``cache_len = 0`` row, softcap, a bf16 cache and
+   a bf16 cache at D = 96 (1e-4, f32 outputs);
 5. slice 1, the graph path, with every launch count set to 0 just before it:
    CEP packs at k = 4, 8, 16, 64, 128 (RF and mirrors measured on the card,
    equal to the numpy oracle), rescale 16→17 and 8→12→8 with the
@@ -36,7 +40,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    edge list with weights 1/deg[src] and the k = 4 PageRank vector as x —
    (a) 16 chunks with full windows, (b) 128 chunks with full windows,
    (c) 16 chunks with 65,536-wide windows (|V|/16) and an out-of-window pass — each
-   held against a float64 numpy oracle at rtol 1e-4; ``ops.flash_attention``
+   held against a float64 numpy oracle at rtol 1e-4, with the chunks packed
+   on the card (``ops.pack_windows_device``); ``ops.flash_attention``
    at qwen3-8b width (32 heads, 8 KV heads repeated, S 8192, D 128, bf16,
    causal) and at gemma2-9b local-layer width (16 heads, D 256, window 4096,
    softcap 50); ``ops.decode_attention`` at qwen3-8b width (batch 8:
@@ -45,14 +50,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    heads at a time, to bound its memory; SDPA's ratio to the same limit at
    qwen3-8b width is printed as a reading); ``edge_spmv`` must launch 3
    times, ``flash_attention`` 2, both on its tensor-core kernel
-   (``tc_launches``), and ``decode_attention`` once;
+   (``tc_launches``), and ``decode_attention`` once; then, for each
+   ``chunked_spmv`` call, the device packing must be byte-equal to the numpy
+   ``pack_windows`` at full size, and the call is timed again, whole and in
+   phases (H2D and range check, packing, x windows, kernel, add-back,
+   out-of-window pass), with a synchronize after each phase;
 7. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes. A bound counts the bytes the
    function must move from this run's inputs (for ``edge_spmv``: its three
    edge arrays, its output, and of x only the distinct entries each chunk
    gathers) and, for flash, the operations of the key positions the masks
-   leave.
+   leave; ``edge_spmv`` also reports its share of that bound.
 
 Output: phase lines, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -156,6 +165,16 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def synced_s(fn):
+    """``fn()`` and its seconds on the host clock, with the card idle before
+    and after: ``(result, seconds)``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
 
 
 def prefill_inputs(gen: torch.Generator, dev) -> list:
@@ -285,18 +304,30 @@ def main() -> int:
     check(int(segment_rf.segment_distinct_counts(all_pad).abs().sum()) == 0, "all-PAD rows must count 0")
 
     # ------------------------------------------------- kernel parity: edge_spmv
-    for c, we, wv, lo, hi in [(2, 16, 32, 0, 33), (5, 64, 128, 0, 129), (3, 128, 256, 0, 257), (1, 1, 8, 0, 8),
-                              (1, 300, 64, 64, 100), (4, 5000, 512, -3, 600)]:
-        ids = [torch.from_numpy(rng.integers(lo, hi, size=(c, we)).astype(np.int32)).to(dev) for _ in range(2)]
+    # dst layouts: "random", "hub" (one dst in every slot), "alternating" (no
+    # two neighbours share a dst), "sorted" (long runs, as GEO order makes).
+    for c, we, wv, lo, hi, layout in [
+            (2, 16, 32, 0, 33, "random"), (5, 64, 128, 0, 129, "random"), (3, 128, 256, 0, 257, "random"),
+            (1, 1, 8, 0, 8, "random"), (1, 300, 64, 64, 100, "random"), (4, 5000, 512, -3, 600, "random"),
+            (3, 5_001, 512, 0, 512, "hub"), (2, 9_999, 512, 0, 512, "alternating"),
+            (5, 40_001, 4096, -1, 4097, "sorted"), (700, 6_001, 1024, 0, 1025, "sorted"),
+            (70_000, 3, 8, 0, 9, "sorted")]:
+        src_ids = rng.integers(lo, hi, size=(c, we)).astype(np.int32)
+        dst_ids = {"random": lambda: rng.integers(lo, hi, size=(c, we)),
+                   "hub": lambda: np.full((c, we), 7),
+                   "alternating": lambda: np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we)),
+                   "sorted": lambda: np.sort(rng.integers(lo, hi, size=(c, we)), axis=1)}[layout]()
+        ids = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in (src_ids, dst_ids)]
         w_t = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(dev)
         x_t = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(dev)
         got = edge_spmv.spmv_blocked(*ids, w_t, x_t)
+        what = f"(C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}), {layout} dst"
         err = close(got, edge_spmv.spmv_blocked_torch(*ids, w_t, x_t), SPMV_PARITY_TOL, SPMV_PARITY_TOL,
-                    f"edge_spmv parity at (C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi})")
+                    f"edge_spmv parity at {what}")
         if lo >= wv:
             check(not bool(got.any()), "edge_spmv: all-padding rows must add exactly 0")
         report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], err)
-        log(f"parity edge_spmv (C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}): max abs err {err:.3e}")
+        log(f"parity edge_spmv {what}: max abs err {err:.3e}")
 
     # ------------------------------------------- kernel parity: flash attention
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -304,7 +335,8 @@ def main() -> int:
                    (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
                    (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
                    (1, 2, 512, 256, 256, 50.0, True), (1, 2, 1000, 128, None, None, True),
-                   (1, 1, 777, 256, 300, 50.0, True)]
+                   (1, 1, 777, 256, 300, 50.0, True),
+                   (1, 2, 512, 96, None, None, True), (1, 2, 700, 96, 200, 50.0, True)]  # D = 96: padded to 128
     for b, h, s, d, window, softcap, causal in flash_cases:
         for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL), (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
             q, k, vv = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype) for _ in range(3))
@@ -324,7 +356,8 @@ def main() -> int:
                     (3, 8, 256, 128, 256, None, torch.float32, None),
                     (3, 4, 512, 64, 128, None, torch.float32, [0, 200, 512]),
                     (2, 4, 512, 128, 128, 20.0, torch.float32, None),
-                    (4, 4, 2048, 128, 512, None, torch.bfloat16, [1, 700, 1536, 2048])]
+                    (4, 4, 2048, 128, 512, None, torch.bfloat16, [1, 700, 1536, 2048]),
+                    (4, 4, 2048, 96, 512, None, torch.bfloat16, [1, 700, 1536, 2048])]  # D = 96: padded to 128
     for bh, gq, s, d, block_s, softcap, kv_dtype, cache in decode_cases:
         q = torch.randn((bh, gq, d), generator=gen, device=dev)
         k, vv = (torch.randn((bh, s, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
@@ -478,7 +511,7 @@ def main() -> int:
 
     x64 = x_pr.double().cpu().numpy()
     spmv_oracle = torch.from_numpy(np.bincount(dst, weights=weights.astype(np.float64) * x64[src], minlength=v))
-    spmv_packs = {}  # each call's kernel input, packed once here for its out-of-window count and its timing
+    spmv_packs = {}  # each call's kernel input from the host oracle, for its out-of-window count and its timing
     for name, (bounds, starts, size) in spmv_calls.items():
         y = spmv_out[name]
         check(y.shape == (v,) and y.dtype == torch.float32 and bool(torch.isfinite(y).all()),
@@ -488,6 +521,31 @@ def main() -> int:
         outside = spmv_packs[name][3].size
         log(f"chunked_spmv ({name}) C={len(starts)} window {size}: max rel diff {rel:.3e} to the float64 oracle "
             f"(limit {SPMV_RTOL}); {outside} of {n} edges in the out-of-window pass; {phases[f'chunked_spmv_{name}_s']:.3f} s")
+
+        # The call once more, whole and then phase by phase, each phase
+        # ended by a synchronize; the phases run the entry point's own steps.
+        st = np.asarray(starts, dtype=np.int64)
+        y_whole, whole_s = synced_s(lambda: ops.chunked_spmv(src, dst, weights, x_pr, bounds, starts, size, device=dev))
+        (s_t, d_t, w_t), h2d_s = synced_s(lambda: ops._edges_to_device(src, dst, weights, v, dev))
+        packed, pack_s = synced_s(lambda: ops.pack_windows_device(s_t, d_t, w_t, bounds, st, size, device=dev))
+        x_win, xwin_s = synced_s(lambda: ops._x_windows(x_pr, st, size))
+        y_win, kernel_s = synced_s(lambda: edge_spmv.spmv_blocked(*packed[:3], x_win))
+        y2, add_s = synced_s(lambda: ops._add_back(y_win, st, v))
+        _, outside_s = synced_s(lambda: ops._add_outside(y2, s_t, d_t, w_t, x_pr, packed[3]))
+        rel_close(y2[:v].cpu(), spmv_oracle, SPMV_RTOL, f"chunked_spmv ({name}) run phase by phase")
+        rel_close(y2[:v], y_whole, SPMV_RTOL, f"chunked_spmv ({name}): the phases against the entry point's own call")
+        split = dict(again=whole_s, h2d=h2d_s, pack=pack_s, x_windows=xwin_s, kernel=kernel_s, add_back=add_s,
+                     outside=outside_s)
+        phases.update({f"chunked_spmv_{name}_{k}_s": t for k, t in split.items()})
+        log(f"chunked_spmv ({name}) again: {whole_s * 1e3:.3f} ms; phases in ms: "
+            + ", ".join(f"{k} {t * 1e3:.3f}" for k, t in split.items() if k != "again"))
+        # The device packing, byte-equal to the host oracle at full size.
+        for part, got_p, want_p in zip(("src_l", "dst_l", "wts", "outside"), packed, spmv_packs[name]):
+            got_np = got_p.cpu().numpy()
+            check(got_np.dtype == want_p.dtype and got_np.shape == want_p.shape and got_np.tobytes() == want_p.tobytes(),
+                  f"pack_windows_device ({name}) {part}: not byte-equal to pack_windows")
+        log(f"pack_windows_device ({name}): byte-equal to the numpy pack_windows, (C, W_E) = {tuple(packed[0].shape)}")
+        del s_t, d_t, w_t, packed, x_win, y_win, y2, y_whole
     check(spmv_packs["c"][3].size > 0, "call (c) must have out-of-window edges")
 
     for what, out, qkv, kw in (("qwen3-8b", qwen_out, qwen_qkv, dict(causal=True)),
@@ -548,18 +606,23 @@ def main() -> int:
         prod = (args_t[2] * x_win.gather(1, torch.where(valid, args_t[0], 0).long()))[valid]
         lib_ms = cuda_ms(lambda: torch.zeros(len(starts) * size, device=dev).index_add_(0, flat, prod), 20)
         c_, w_e = src_l.shape
-        # Bytes the function must move: the three (C, W_E) inputs, the
+        # Bytes the function must move: the two ids of every slot, the weight
+        # of every valid slot only (a padding slot's weight adds nothing), the
         # (C, W_V) output, and of x_win only the entries the gather reads
         # (the distinct in-window src ids of each chunk).
+        n_valid = int(valid.sum())
         gathered = int(torch.unique((torch.arange(c_, device=dev)[:, None] * size + args_t[0])[valid]).numel())
-        spmv_bytes = 12 * c_ * w_e + 4 * c_ * size + 4 * gathered
+        spmv_bytes = 8 * c_ * w_e + 4 * n_valid + 4 * c_ * size + 4 * gathered
+        ms = cuda_ms(lambda: edge_spmv.spmv_blocked(*args_t, x_win), 20)
+        bound_ms = spmv_bytes / H100_BYTES_PER_S * 1e3
         spmv_times.append(dict(
-            shape=[c_, w_e, size], ms=cuda_ms(lambda: edge_spmv.spmv_blocked(*args_t, x_win), 20),
-            plain_ms=cuda_ms(lambda: edge_spmv.spmv_blocked_torch(*args_t, x_win), 5),
-            bound_ms=spmv_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=lib_ms, x_read=gathered))
-        log(f"edge_spmv ({name}) (C, W_E, W_V) = ({c_}, {w_e}, {size}): {spmv_times[-1]['ms']:.4f} ms, plain "
-            f"{spmv_times[-1]['plain_ms']:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {spmv_times[-1]['bound_ms']:.4f} ms "
-            f"({spmv_bytes} B, {gathered} distinct x entries gathered); max rel diff to the plain version {rel:.3e}")
+            shape=[c_, w_e, size], ms=ms, plain_ms=cuda_ms(lambda: edge_spmv.spmv_blocked_torch(*args_t, x_win), 5),
+            bound_ms=bound_ms, bound_by="bytes", bound_share=bound_ms / ms, library_ms=lib_ms, valid_slots=n_valid,
+            x_read=gathered))
+        log(f"edge_spmv ({name}) (C, W_E, W_V) = ({c_}, {w_e}, {size}): {ms:.4f} ms, plain "
+            f"{spmv_times[-1]['plain_ms']:.4f} ms, index_add_ {lib_ms:.4f} ms ({lib_ms / ms:.3f}× the kernel's time), "
+            f"bound {bound_ms:.4f} ms ({bound_ms / ms:.3f} of it; {spmv_bytes} B, {n_valid} valid slots, {gathered} "
+            f"distinct x entries gathered); max rel diff to the plain version {rel:.3e}")
         del args_t, x_pad, x_win, got, want, valid, flat, prod
     report["edge_spmv"].update(spmv_times[0], other_shapes=spmv_times[1:])
 
@@ -630,6 +693,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             **({"tc_launches": slice2_tc} if name == "flash_attention" else {}),
+            **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
         })
     log(f"card: {card}")

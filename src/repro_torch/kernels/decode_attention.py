@@ -12,6 +12,8 @@ type), ``cache_len`` ``(BHkv,)`` int32. Partials: o ``(BHkv, nb, Gq, D)``,
 m/l ``(BHkv, nb, Gq, 1)``, all f32, with ``nb = S / block_s``. A tile past
 ``cache_len`` gives ``m = -1e30``, ``l = block_s`` and o the mean of its v, as
 on the TPU, so a row with ``cache_len = 0`` decodes to the mean of all of v.
+The kernel is built for head dimensions ``HEAD_DIMS``; the wrapper zero-pads
+any other D up to 256 to the next of them and drops the padded columns of o.
 
 Dispatch: tensors on the CPU go to the plain version
 ``decode_attention_partials_torch``; CUDA tensors launch the kernel or raise.
@@ -24,6 +26,7 @@ import ctypes
 import torch
 
 from . import _build
+from .flash_attention import kernel_operand, padded_head_dim
 
 __all__ = [
     "DEFAULT_BLOCK_S",
@@ -106,27 +109,25 @@ def decode_attention_partials(q, k, v, cache_len, *, scale=None, block_s: int = 
         return decode_attention_partials_torch(q, k, v, cache_len, scale=scale, block_s=block_s, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"decode attention runs on CUDA or CPU tensors, got {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dimensions {HEAD_DIMS}, got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous() and cache_len.is_contiguous()):
         raise ValueError("decode attention takes contiguous q, k, v and cache_len")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
-        raise ValueError("decode attention reads k and v in 16-byte pieces: their storage must be 16-byte aligned")
+    dp = padded_head_dim(d, HEAD_DIMS)
+    k, v = kernel_operand(k, dp), kernel_operand(v, dp)  # the kernel reads k and v in 16-byte pieces
     nb = s // block_s
     need = _smem_bytes(k, gq, block_s)
     if need > SMEM_LIMIT:
         raise ValueError(f"Gq={gq} query heads over block_s={block_s} keys need {need} bytes of shared memory, "
                          f"more than the {SMEM_LIMIT} a block has: use a smaller block_s")
-    o = torch.empty((bh, nb, gq, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((bh, nb, gq, dp), dtype=torch.float32, device=q.device)
     m = torch.empty((bh, nb, gq, 1), dtype=torch.float32, device=q.device)
     l = torch.empty((bh, nb, gq, 1), dtype=torch.float32, device=q.device)
-    if o.numel() == 0:
-        return o, m, l
-    qf = q.float().contiguous()  # a cast of the small query, as the TPU kernel's first step
-    with torch.cuda.device(q.device):
-        _launch(qf, k, v, cache_len, o, m, l, scale, block_s, softcap, torch.cuda.current_stream(q.device).cuda_stream)
-    launches += 1
-    return o, m, l
+    if o.numel():
+        qf = kernel_operand(q.float().contiguous(), dp)  # a cast of the small query, as the TPU kernel's first step
+        with torch.cuda.device(q.device):
+            _launch(qf, k, v, cache_len, o, m, l, scale, block_s, softcap,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        launches += 1
+    return (o if dp == d else o[..., :d].contiguous()), m, l
 
 
 def _smem_bytes(k, gq: int, block_s: int) -> int:

@@ -9,8 +9,10 @@ x_win[c, src_l[c, e]]``. An edge whose local ids are not both in
 ``[0, W_V)`` adds exactly 0; the caller pads empty slots with ``W_V``.
 
 Inputs: ``src_local``/``dst_local`` ``(C, W_E)`` int32, ``weights`` ``(C, W_E)``
-f32, ``x_windows`` ``(C, W_V)`` f32. Output ``(C, W_V)`` f32. The kernel adds
-with atomics, so its f32 sums run in an order that changes from run to run.
+f32, ``x_windows`` ``(C, W_V)`` f32. Output ``(C, W_V)`` f32. The kernel walks
+the chunks one after another (so that the rows it scatters into stay in L2)
+and adds each run of equal dst within a warp's slots with one atomic, so its
+f32 sums run in an order that changes from run to run.
 
 Dispatch: a tensor on the CPU goes to the plain version ``spmv_blocked_torch``;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel launches.

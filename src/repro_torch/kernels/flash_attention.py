@@ -14,7 +14,10 @@ The source holds two kernels, chosen by dtype: bf16 runs on the tensor cores
 so that the result stays within one bf16 rounding step of f32); f32 runs on
 the CUDA cores, since no tensor-core format keeps an f32 input's accuracy.
 Both pick their own tiles and take any sequence length; the JAX kernel's
-``block_q``/``block_kv`` have no counterpart.
+``block_q``/``block_kv`` have no counterpart. The kernels are built for head
+dimensions ``HEAD_DIMS``; the wrapper zero-pads any other D up to 256 to the
+next of them (zero columns of q and k add nothing to the logits, the padded
+columns of the output are dropped, and the scale stays that of the real D).
 
 Dispatch: tensors on the CPU go to the plain version ``flash_attention_torch``;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel launches,
@@ -28,7 +31,8 @@ import torch
 
 from . import _build
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_torch", "launches", "tc_launches"]
+__all__ = ["NEG_INF", "flash_attention", "flash_attention_torch", "kernel_operand", "launches", "padded_head_dim",
+           "tc_launches"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256)  # the kernel's instantiations
@@ -54,6 +58,24 @@ def flash_attention_torch(q, k, v, *, scale=None, causal=True, window=None, soft
         mask &= kpos > qpos - window
     p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def padded_head_dim(d: int, head_dims=HEAD_DIMS) -> int:
+    """The smallest of ``head_dims`` that holds head dimension ``d``; raises
+    above the largest."""
+    for dp in head_dims:
+        if d <= dp:
+            return dp
+    raise ValueError(f"the CUDA kernel takes head dimensions up to {head_dims[-1]}, got {d}")
+
+
+def kernel_operand(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """Contiguous ``t`` as a kernel reads it: zero-padded along its last axis
+    to ``dp`` columns, or copied when its data do not start on a 16-byte
+    boundary (TMA and 16-byte loads); else ``t`` itself."""
+    if t.shape[-1] != dp:
+        return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def flash_attention(
@@ -85,22 +107,19 @@ def flash_attention(
         return flash_attention_torch(q, k, v, scale=scale, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dimensions {HEAD_DIMS}, got {d}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention takes bf16 q, k, v whose data start on a 16-byte boundary (TMA)")
+    dp = padded_head_dim(d)
+    q, k, v = (kernel_operand(t, dp) for t in (q, k, v))
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    with torch.cuda.device(q.device):
-        _launch(_build.load("flash_attention"), q, k, v, out, scale, causal, window, softcap,
-                torch.cuda.current_stream(q.device).cuda_stream)
-    launches += 1
-    if q.dtype == torch.bfloat16:
-        tc_launches += 1
-    return out
+    if q.numel():
+        with torch.cuda.device(q.device):
+            _launch(_build.load("flash_attention"), q, k, v, out, scale, causal, window, softcap,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+        launches += 1
+        if q.dtype == torch.bfloat16:
+            tc_launches += 1
+    return out if dp == d else out[..., :d].contiguous()
 
 
 def _launch(lib: ctypes.CDLL, q, k, v, out, scale: float, causal: bool, window, softcap, stream: int) -> None:

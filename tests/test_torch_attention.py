@@ -318,3 +318,60 @@ def test_rounding_p_once_fails_the_limit_and_the_split_passes(seed):
     split = _tc_emulation(q, k, v, causal=True, window=None, softcap=None)
     assert _limit_ratio(once.float().numpy(), want) > 4.0
     assert _limit_ratio(split.float().numpy(), want) <= 1.0
+
+
+# ------------------------------- head dims the CUDA kernels are not built for
+# The CUDA wrappers zero-pad D up to the next of HEAD_DIMS (32, 64, 128, 256)
+# and drop the padded output columns. On the CPU the wrappers run the plain
+# version at the real D; the tests below also run the plain version on the
+# padded operands exactly as the wrappers build them for the kernel.
+@pytest.mark.parametrize("d,dp", [(1, 32), (12, 32), (16, 32), (32, 32), (33, 64), (96, 128), (200, 256), (256, 256)])
+def test_padded_head_dim(d, dp):
+    assert fa.padded_head_dim(d) == dp == fa.padded_head_dim(d, dec.HEAD_DIMS)
+
+
+def test_head_dims_above_256_are_refused():
+    with pytest.raises(ValueError):
+        fa.padded_head_dim(257)
+
+
+def test_kernel_operand_pads_or_copies_only_when_needed():
+    base = torch.arange(2 * 65, dtype=torch.bfloat16)
+    aligned = base[:128].view(2, 64)
+    assert fa.kernel_operand(aligned, 64) is aligned
+    shifted = base[1:129].view(2, 64)  # contiguous, but 2 bytes past a 16-byte boundary
+    assert shifted.data_ptr() % 16
+    copy = fa.kernel_operand(shifted, 64)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, shifted)
+    padded = fa.kernel_operand(aligned[:, :48].contiguous(), 64)
+    assert padded.shape == (2, 64) and torch.equal(padded[:, :48], aligned[:, :48]) and not padded[:, 48:].any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window,softcap", [(None, None), (64, 30.0)], ids=["causal", "window-softcap"])
+def test_flash_at_d96_matches_pallas_kernel(window, softcap, dtype):
+    """phi-3-vision's head_dim (src/repro/configs/phi3_vision.py)."""
+    (jq, q), (jk, k), (jv, v) = (_both((1, 2, 256, 96), dtype, seed) for seed in (21, 22, 23))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    want = _np32(J_fa.flash_attention(jq, jk, jv, block_q=128, block_kv=128, **kw))
+    tol = DTYPES[dtype][3]
+    got = ops.flash_attention(q, k, v, **kw)
+    assert got.shape == (1, 2, 256, 96)
+    np.testing.assert_allclose(_np32(got), want, rtol=tol, atol=tol)
+    dp = fa.padded_head_dim(96)
+    padded = fa.flash_attention_torch(*(fa.kernel_operand(t, dp) for t in (q, k, v)), scale=96**-0.5, **kw)
+    assert padded.shape[-1] == 128
+    np.testing.assert_allclose(_np32(padded[..., :96]), want, rtol=tol, atol=tol)
+
+
+def test_decode_at_d96_matches_pallas_kernel():
+    jx, tx = _decode_inputs(2, 4, 512, 96, seed=31, kv_dtype="bf16", cache=[100, 512])
+    want = np.asarray(J_ops.decode_attention(*jx, block_s=128))
+    got = ops.decode_attention(*tx, block_s=128)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    q, k, v, cl = tx
+    dp = fa.padded_head_dim(96, dec.HEAD_DIMS)
+    o, m, l = dec.decode_attention_partials_torch(*(fa.kernel_operand(t, dp) for t in (q.float(), k, v)), cl,
+                                                  scale=96**-0.5, block_s=128)
+    assert o.shape[-1] == 128
+    np.testing.assert_allclose(dec.merge_partials(o[..., :96], m, l)[0].numpy(), want, rtol=2e-5, atol=2e-5)

@@ -127,6 +127,62 @@ def test_edge_spmv_kernel_matches_plain_version(cuda, c, we, wv):
     torch.testing.assert_close(got, edge_spmv.spmv_blocked_torch(*ids, w, x), rtol=1e-5, atol=1e-5)
 
 
+def _dst_layout(layout, rng, c, we, wv):
+    if layout == "hub":  # one dst in every slot: one run across warps and blocks
+        return np.full((c, we), 7)
+    if layout == "alternating":  # no two neighbours share a dst
+        return np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we))
+    if layout == "padding":  # every slot is padding
+        return np.full((c, we), wv)
+    if layout == "outside":  # ids below 0 and at or past W_V, in runs
+        return np.sort(rng.integers(-wv, 2 * wv, size=(c, we)), axis=1)
+    return np.sort(rng.integers(0, wv, size=(c, we)), axis=1)  # "sorted": runs, as GEO order makes
+
+
+# A block tile is 1,024 edge slots, one block a tile up to 65,536 tiles: a
+# chunk of W_E 4,097 spans 5 blocks, and 70,000 one-tile chunks make the first
+# blocks stride to a second chunk. W_E 981 is odd, so most rows start off a
+# 16-byte boundary.
+@pytest.mark.parametrize("layout,c,we,wv", [("hub", 3, 5_001, 512), ("alternating", 2, 9_999, 512),
+                                            ("padding", 4, 3_000, 256), ("outside", 3, 4_097, 64),
+                                            ("sorted", 5, 981, 100), ("sorted", 400, 4_097, 1024),
+                                            ("sorted", 70_000, 3, 8)],
+                         ids=["hub", "alternating", "all-padding", "ids-outside", "odd-W_E", "many-chunks",
+                              "grid-strides"])
+def test_edge_spmv_kernel_on_run_layouts(cuda, layout, c, we, wv):
+    rng = np.random.default_rng(we)
+    src = torch.from_numpy(rng.integers(0, wv, size=(c, we)).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(np.ascontiguousarray(_dst_layout(layout, rng, c, we, wv), dtype=np.int32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(cuda)
+    before = edge_spmv.launches
+    got = edge_spmv.spmv_blocked(src, dst, w, x)
+    torch.cuda.synchronize()
+    assert edge_spmv.launches == before + 1
+    torch.testing.assert_close(got, edge_spmv.spmv_blocked_torch(src, dst, w, x), rtol=1e-5, atol=1e-5)
+    if layout == "padding":
+        assert not bool(got.any())  # exact zeros
+
+
+@pytest.mark.parametrize("window", ["full", 32, "past-V"])
+def test_device_packing_on_cuda_equals_cpu(cuda, ordered, window):
+    g, s, d = ordered
+    v = g.num_vertices
+    bounds = np.asarray(cep.chunk_bounds(len(s), 8))
+    if window == "full":
+        starts, size = [0] * 8, v
+    else:
+        starts, size = [int(np.clip(s[bounds[i]:bounds[i + 1]].min(), 0, v - 32)) for i in range(8)], 32
+        if window == "past-V":
+            starts[-1] = v
+    w = np.random.default_rng(2).random(len(s)).astype(np.float32)
+    got = ops.pack_windows_device(s, d, w, bounds, starts, size)  # device=None means CUDA
+    want = ops.pack_windows_device(s, d, w, bounds, starts, size, device="cpu")
+    for a, b, c in zip(got, want, ops.pack_windows(s, d, w, bounds, starts, size)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+        assert a.cpu().numpy().tobytes() == b.numpy().tobytes() == c.tobytes()
+
+
 @pytest.mark.parametrize("window", ["full", 32])
 def test_chunked_spmv_on_cuda_matches_cpu(cuda, ordered, window):
     g, s, d = ordered
@@ -150,7 +206,10 @@ FLASH_CASES = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, Tr
                (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
                (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
                (1, 2, 512, 256, 100, 50.0, True), (1, 1, 100, 32, 7, None, True),
-               (1, 2, 1000, 128, None, None, True), (1, 1, 777, 256, 300, 50.0, True)]
+               (1, 2, 1000, 128, None, None, True), (1, 1, 777, 256, 300, 50.0, True),
+               # head dims the kernels are not built for, zero-padded by the wrapper (96 → 128, 16 → 32)
+               (1, 2, 256, 96, None, None, True), (1, 2, 300, 96, 64, 50.0, True),
+               (2, 1, 128, 16, None, None, True), (1, 2, 200, 16, 50, 30.0, True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -174,7 +233,9 @@ def test_flash_kernel_matches_plain_version(cuda, b, h, s, d, window, softcap, c
 # ---------------------------------------------------------- decode attention
 DECODE_CASES = [(2, 4, 512, 64, 128, None, "f32", None), (1, 1, 1024, 32, 256, None, "f32", None),
                 (3, 8, 256, 128, 256, None, "f32", [0, 100, 256]), (2, 4, 512, 128, 128, 20.0, "f32", None),
-                (4, 4, 2048, 128, 512, None, "bf16", [1, 700, 1536, 2048]), (2, 5, 256, 256, 64, None, "bf16", None)]
+                (4, 4, 2048, 128, 512, None, "bf16", [1, 700, 1536, 2048]), (2, 5, 256, 256, 64, None, "bf16", None),
+                (4, 4, 2048, 96, 512, None, "bf16", [1, 700, 1536, 2048]), (2, 4, 512, 96, 128, 20.0, "f32", None),
+                (3, 4, 512, 16, 128, None, "f32", [0, 77, 512]), (2, 4, 512, 16, 256, None, "bf16", None)]
 
 
 @pytest.mark.parametrize("bh,gq,s,d,block_s,softcap,kv_dtype,cache", DECODE_CASES)
@@ -199,3 +260,46 @@ def test_decode_wrapper_rejects_tiles_beyond_shared_memory(cuda):
     q, k = torch.zeros((1, 8, 64), device=cuda), torch.zeros((1, 1 << 14, 64), device=cuda)
     with pytest.raises(ValueError):
         dec.decode_attention_partials(q, k, k, torch.ones(1, dtype=torch.int32, device=cuda), block_s=1 << 14)
+
+
+# ---------------------------- operands the wrappers copy instead of refusing
+def _shifted(shape, dtype, gen, device):
+    """A contiguous tensor whose data start one element past an allocation,
+    so not on a 16-byte boundary."""
+    n = int(np.prod(shape))
+    base = torch.randn(n + 1, generator=gen, device=device).to(dtype)
+    t = base[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    return t
+
+
+def test_flash_takes_unaligned_bf16_views(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (_shifted((1, 2, 256, 64), torch.bfloat16, gen, cuda) for _ in range(3))
+    before = fa.tc_launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.tc_launches == before + 1
+    torch.testing.assert_close(got.float(), fa.flash_attention_torch(q, k, v).float(), rtol=2**-7, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_takes_unaligned_kv(cuda, kv_dtype):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = torch.randn((2, 4, 64), generator=gen, device=cuda)
+    k, v = (_shifted((2, 512, 64), kv_dtype, gen, cuda) for _ in range(2))
+    cl = torch.tensor([300, 512], dtype=torch.int32, device=cuda)
+    got = dec.decode_attention_partials(q, k, v, cl, block_s=128)
+    want = dec.decode_attention_partials_torch(q, k, v, cl, scale=64**-0.5, block_s=128)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+
+
+def test_head_dims_above_256_still_raise(cuda):
+    q = torch.zeros((1, 1, 64, 288), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q, q)
+    kv = torch.zeros((1, 128, 320), device=cuda)
+    with pytest.raises(ValueError):
+        dec.decode_attention_partials(torch.zeros((1, 2, 320), device=cuda), kv, kv,
+                                      torch.ones(1, dtype=torch.int32, device=cuda), block_s=128)

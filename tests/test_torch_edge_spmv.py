@@ -189,3 +189,85 @@ def test_chunked_spmv_rejects_bad_windows(starts, size, bounds):
     x = np.ones(10, dtype=np.float32)
     with pytest.raises(ValueError):
         ops.chunked_spmv(src, dst, w, x, [0, 2, 4] if bounds is None else bounds, starts, size, device="cpu")
+
+
+# ------------------------------------------------------ packing on the device
+def _window_cases(kind, src, bounds, v):
+    """``_windows``' kinds, plus a window with no in-window edge (past every
+    id of its chunk) and a window that starts past V (clipped to nothing)."""
+    if kind in ("full", "narrow", "clipped"):
+        return _windows(kind, src, bounds, v)
+    starts, size = _windows("narrow", src, bounds, v)
+    if kind == "empty-chunk":
+        starts[1] = int(src[bounds[1]:bounds[2]].max()) + 1  # every edge of chunk 1 leaves its window
+        return starts, size
+    starts[-1] = v  # past-V: the last window holds no vertex
+    return starts, size
+
+
+@pytest.mark.parametrize("kind", ["full", "narrow", "clipped", "empty-chunk", "past-V"])
+def test_device_packing_is_byte_equal_to_the_host_packing_and_the_loop(ordered, kind):
+    src, dst, w, _, v = ordered
+    bounds = np.asarray(J_cep.chunk_bounds(src.shape[0], 8))
+    starts, size = _window_cases(kind, src, bounds, v)
+    got = ops.pack_windows_device(src, dst, w, bounds, starts, size, device="cpu")
+    host = ops.pack_windows(src, dst, w, bounds, starts, size)
+    loop = _pack_loop(src, dst, w, bounds, starts, size)
+    for a, b, c in zip(got, host, loop):
+        a = a.numpy()
+        assert a.dtype == b.dtype == c.dtype and a.shape == b.shape == c.shape
+        assert a.tobytes() == b.tobytes() == c.tobytes()
+    if kind == "empty-chunk":
+        assert not (got[0][1] < size).any()  # chunk 1 is all padding
+        assert np.isin(np.arange(bounds[1], bounds[2]), got[3].numpy()).all()
+
+
+def test_device_packing_of_chunks_that_skip_edges():
+    """Bounds that start past edge 0 and end before the last edge, with an
+    empty chunk between: only the edges inside the bounds are packed."""
+    rng = np.random.default_rng(3)
+    src, dst = (rng.integers(0, 50, size=40).astype(np.int32) for _ in range(2))
+    w = rng.random(40).astype(np.float32)
+    bounds, starts, size = [3, 10, 10, 31], [0, 5, 20], 30
+    got = ops.pack_windows_device(src, dst, w, bounds, starts, size, device="cpu")
+    for a, b in zip(got, ops.pack_windows(src, dst, w, bounds, starts, size)):
+        assert a.numpy().dtype == b.dtype and a.numpy().tobytes() == b.tobytes()
+
+
+def test_chunked_spmv_never_runs_the_host_packer(ordered, monkeypatch):
+    src, dst, w, x, v = ordered
+    bounds = np.asarray(J_cep.chunk_bounds(src.shape[0], 4))
+    starts, size = _windows("narrow", src, bounds, v)
+    want = ops.chunked_spmv(src, dst, w, x, bounds, starts, size, device="cpu")
+
+    def refuse(*a, **k):
+        raise AssertionError("chunked_spmv called the numpy pack_windows")
+
+    monkeypatch.setattr(ops, "pack_windows", refuse)
+    got = ops.chunked_spmv(src, dst, w, x, bounds, starts, size, device="cpu")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("starts_of", ["all-one-start", "pairs", "mixed"])
+def test_add_back_of_windows_that_share_a_start_matches_jax(ordered, starts_of):
+    """Several chunks on one window start: their rows are summed before the
+    one slice add of that start. Same result as the JAX package."""
+    src, dst, w, x, v = ordered
+    bounds = np.asarray(J_cep.chunk_bounds(src.shape[0], 6))
+    size = v // 2
+    starts = {"all-one-start": [v // 4] * 6, "pairs": [0, 0, 7, 7, v // 2, v // 2],
+              "mixed": [3, 0, 3, v - size, 0, 3]}[starts_of]
+    got = ops.chunked_spmv(src, dst, w, x, bounds, starts, size, device="cpu")
+    want = J_ops.chunked_spmv(src, dst, w, x, bounds, starts, size)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    oracle = np.zeros(v)
+    np.add.at(oracle, dst, w.astype(np.float64) * x[src])
+    np.testing.assert_allclose(got.numpy(), oracle, rtol=1e-4, atol=1e-4)
+
+
+def test_chunked_spmv_rejects_endpoints_outside_x():
+    src = np.array([0, 1, 2, 10], dtype=np.int32)
+    dst = np.array([1, 2, 3, 0], dtype=np.int32)
+    with pytest.raises(ValueError):
+        ops.chunked_spmv(src, dst, np.ones(4, np.float32), np.ones(10, np.float32), [0, 2, 4], [0, 0], 8,
+                         device="cpu")
