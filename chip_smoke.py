@@ -26,9 +26,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    kernel) and bf16 (one bf16 rounding step: 2^-7·|plain| + 1e-4, the
    tensor-core kernel), non-causal, D = 256 with window and softcap, ragged
    S at D 128 and 256, and D = 96 (phi-3-vision's head_dim, zero-padded to
-   128 by the wrapper) causal and windowed with softcap; ``decode_attention`` at
-   the JAX tests' cases, a ``cache_len = 0`` row, softcap, a bf16 cache and
-   a bf16 cache at D = 96 (1e-4, f32 outputs);
+   128 by the wrapper) causal and windowed with softcap; ``decode_attention``
+   at the JAX tests' cases, a ``cache_len = 0`` row, softcap, a bf16 cache and
+   a bf16 cache at D = 96 (1e-4, f32 outputs), each case through both entry
+   points: the per-tile partials and the merged path (split kernel, then
+   combine kernel), the latter also at ``cache_len`` 0, 1 and either side of
+   a split boundary, at Gq 1 and 8, and with a bf16 query;
 5. slice 1, the graph path, with every launch count set to 0 just before it:
    CEP packs at k = 4, 8, 16, 64, 128 (RF and mirrors measured on the card,
    equal to the numpy oracle), rescale 16→17 and 8→12→8 with the
@@ -50,7 +53,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    heads at a time, to bound its memory; SDPA's ratio to the same limit at
    qwen3-8b width is printed as a reading); ``edge_spmv`` must launch 3
    times, ``flash_attention`` 2, both on its tensor-core kernel
-   (``tc_launches``), and ``decode_attention`` once; then, for each
+   (``tc_launches``), and ``decode_attention`` once: its split kernel
+   (``launches``) and its combine kernel (``merge_launches``) once each;
+   then, for each
    ``chunked_spmv`` call, the device packing must be byte-equal to the numpy
    ``pack_windows`` at full size, and the call is timed again, whole and in
    phases (H2D and range check, packing, x windows, kernel, add-back,
@@ -61,7 +66,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    function must move from this run's inputs (for ``edge_spmv``: its three
    edge arrays, its output, and of x only the distinct entries each chunk
    gathers) and, for flash, the operations of the key positions the masks
-   leave; ``edge_spmv`` also reports its share of that bound.
+   leave; ``edge_spmv`` also reports its share of that bound. Decode is timed
+   as the merged call (both kernels) and as the partials entry point, beside
+   SDPA in two forms (3-D with a float mask, 4-D with a boolean mask; the
+   faster is the library time), with the bytes the split kernel reads and
+   the rate it reaches.
 
 Output: phase lines, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -103,6 +112,14 @@ GEMMA2 = dict(heads=16, kv_heads=8, head_dim=256, window=4096, softcap=50.0)
 PREFILL_SEQ = 8192
 DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
 FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
+
+
+def decode_cache_lengths(rows: int) -> np.ndarray:
+    """``cache_len`` of the full-size decode call: numpy seed 0 in [1, S],
+    with one full row and one not a multiple of 512."""
+    cache_np = np.random.default_rng(0).integers(1, DECODE_CACHE + 1, size=rows).astype(np.int32)
+    cache_np[0], cache_np[1] = DECODE_CACHE, DECODE_CACHE // 2 + 123
+    return cache_np
 
 
 def log(msg: str) -> None:
@@ -236,6 +253,7 @@ def main() -> int:
         for m in modules.values():
             m.launches = 0
         fa.tc_launches = 0
+        dec.merge_launches = 0
 
     def read_launches() -> dict:
         return {name: m.launches for name, m in modules.items()}
@@ -368,13 +386,31 @@ def main() -> int:
         what = f"decode_attention parity at {(bh, gq, s, d, block_s)} softcap {softcap} {kv_dtype} cache_len {cache}"
         err = max(close(gv, wv_, DECODE_TOL, DECODE_TOL, f"{what} ({name})") for name, gv, wv_ in zip("oml", got, want))
         err = max(err, close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, what))
+        merged = dec.decode_attention(q, k, vv, cl, block_s=block_s, softcap=softcap)
+        err = max(err, close(merged, dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, f"{what} (merged)"))
         if cache is not None and cache[0] == 0:
             mean_v = vv[0].float().mean(0).expand(gq, d)
-            close(dec.merge_partials(*got)[0][0], mean_v, DECODE_TOL, DECODE_TOL,
-                  "cache_len = 0 must decode to the mean of v")
+            for name, out in (("partials", dec.merge_partials(*got)[0]), ("merged", merged)):
+                close(out[0], mean_v, DECODE_TOL, DECODE_TOL, f"cache_len = 0 must decode to the mean of v ({name})")
         report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
         log(f"parity decode_attention (BH, Gq, S, D, block_s) = {(bh, gq, s, d, block_s)} softcap {softcap} "
-            f"{str(kv_dtype)[6:]} cache_len {cache or 'random'}: max abs err {err:.3e}")
+            f"{str(kv_dtype)[6:]} cache_len {cache or 'random'}: max abs err {err:.3e} (partials and merged)")
+    # The merged path at split boundaries, an empty row, Gq 1 and 8, a bf16 query.
+    sp = dec.SPLIT
+    for gq, d, kv_dtype, q_dtype in [(4, 128, torch.bfloat16, torch.bfloat16), (8, 128, torch.float32, torch.float32),
+                                     (1, 96, torch.bfloat16, torch.float32), (8, 256, torch.bfloat16, torch.bfloat16)]:
+        cache = [0, 1, sp - 1, sp, sp + 1, 3 * sp]
+        q = torch.randn((len(cache), gq, d), generator=gen, device=dev).to(q_dtype)
+        k, vv = (torch.randn((len(cache), 3 * sp, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
+        cl = torch.tensor(cache, dtype=torch.int32, device=dev)
+        got = dec.decode_attention(q, k, vv, cl)
+        want = dec.merge_partials(*dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=512))[0]
+        what = f"decode_attention merged path at Gq {gq}, D {d}, {kv_dtype} cache, {q_dtype} q, cache_len {cache}"
+        err = close(got, want, DECODE_TOL, DECODE_TOL, what)
+        close(got[0], vv[0].float().mean(0).expand(gq, d), DECODE_TOL, DECODE_TOL,
+              f"{what}: cache_len = 0 must decode to the mean of v")
+        report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
+        log(f"parity {what}: max abs err {err:.3e}")
     phases["parity_s"] = time.perf_counter() - t0
 
     # ------------------------------------------------- slice 1: the graph path
@@ -476,8 +512,7 @@ def main() -> int:
     dec_q = torch.randn((bh_dec, rep, hd), generator=gen, device=dev, dtype=torch.bfloat16)
     dec_k, dec_v = (torch.randn((bh_dec, DECODE_CACHE, hd), generator=gen, device=dev, dtype=torch.bfloat16)
                     for _ in range(2))
-    cache_np = np.random.default_rng(0).integers(1, DECODE_CACHE + 1, size=bh_dec).astype(np.int32)
-    cache_np[0], cache_np[1] = DECODE_CACHE, DECODE_CACHE // 2 + 123  # one full row; one not a multiple of 512
+    cache_np = decode_cache_lengths(bh_dec)
     dec_len = torch.from_numpy(cache_np).to(dev)
     torch.cuda.synchronize()
 
@@ -504,10 +539,12 @@ def main() -> int:
     phases["slice2_path_s"] = time.perf_counter() - t_slice2
     slice2_launches = read_launches()
     expected2 = {"segment_rf": 0, "edge_spmv": len(spmv_calls), "flash_attention": 2, "decode_attention": 1}
-    slice2_tc = fa.tc_launches
+    slice2_tc, slice2_merges = fa.tc_launches, dec.merge_launches
     check(slice2_launches == expected2, f"slice 2 launched {slice2_launches}, expected {expected2}")
     check(slice2_tc == 2, f"slice 2's two bf16 flash calls ran the tensor-core kernel {slice2_tc} times, expected 2")
-    log(f"slice 2 launches: {slice2_launches}; flash_attention on the tensor cores: {slice2_tc}")
+    check(slice2_merges == 1, f"slice 2's decode call ran the combine kernel {slice2_merges} times, expected 1")
+    log(f"slice 2 launches: {slice2_launches}; flash_attention on the tensor cores: {slice2_tc}; "
+        f"decode_attention's combine kernel: {slice2_merges}")
 
     x64 = x_pr.double().cpu().numpy()
     spmv_oracle = torch.from_numpy(np.bincount(dst, weights=weights.astype(np.float64) * x64[src], minlength=v))
@@ -648,22 +685,44 @@ def main() -> int:
     del qwen_qkv, gemma_qkv
     torch.cuda.empty_cache()
 
-    dec_bytes = int(cache_np.astype(np.int64).sum()) * hd * 2 * dec_k.element_size()  # K and V below cache_len
+    row_bytes = hd * dec_k.element_size()
+    valid = np.minimum(cache_np.astype(np.int64), DECODE_CACHE)
+    dec_bytes = int(valid.sum()) * 2 * row_bytes  # K and V below cache_len
     dec_bytes += dec_q.numel() * dec_q.element_size() + bh_dec * rep * hd * 4 + bh_dec * 4
-    mask = torch.arange(DECODE_CACHE, device=dev)[None, None, :] < dec_len[:, None, None]
+    # What the two kernels move: the split kernel reads q, cache_len and K/V
+    # below cache_len (V of every key of a row with cache_len = 0) and writes
+    # (o, m, l) of each split it runs; the combine reads those and writes out.
+    splits_run = int(np.where(valid >= 1, -(-valid // dec.SPLIT), -(-DECODE_CACHE // dec.SPLIT)).sum())
+    kv_read = int(np.where(valid >= 1, 2 * valid, DECODE_CACHE).sum()) * row_bytes
+    partial_bytes = splits_run * rep * (hd + 2) * 4
+    kernel_bytes = kv_read + dec_q.numel() * dec_q.element_size() + 2 * bh_dec * 4 + 2 * partial_bytes \
+        + bh_dec * rep * hd * 4
+    partials_kv_read = int((valid + DECODE_CACHE).sum()) * row_bytes  # the V of every tile, K below cache_len
+    mask3 = torch.arange(DECODE_CACHE, device=dev)[None, None, :] < dec_len[:, None, None]
+    q4, k4, v4 = dec_q[:, None], dec_k[:, None], dec_v[:, None]  # (64, 1, 4, 128) and (64, 1, 32768, 128)
+    mask4 = mask3[:, None]  # (64, 1, 1, 32768) bool
+    sdpa3 = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(dec_q, dec_k, dec_v, attn_mask=mask3), 20)
+    sdpa4 = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask4), 20)
+    ms = cuda_ms(lambda: dec.decode_attention(dec_q, dec_k, dec_v, dec_len, block_s=DECODE_BLOCK), 20)
     report["decode_attention"].update(
-        shape=[bh_dec, rep, DECODE_CACHE, hd],
-        ms=cuda_ms(lambda: dec.decode_attention(dec_q, dec_k, dec_v, dec_len, block_s=DECODE_BLOCK), 20),
+        shape=[bh_dec, rep, DECODE_CACHE, hd], ms=ms,
         plain_ms=cuda_ms(lambda: dec.merge_partials(*dec.decode_attention_partials_torch(
             dec_q, dec_k, dec_v, dec_len, scale=hd**-0.5, block_s=DECODE_BLOCK)), 3),
-        bound_ms=dec_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes",
-        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            dec_q, dec_k, dec_v, attn_mask=mask), 20))
+        bound_ms=dec_bytes / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=min(sdpa3, sdpa4),
+        sdpa_3d_mask_ms=sdpa3, sdpa_4d_bool_mask_ms=sdpa4, kernel_bytes=kernel_bytes,
+        kernel_tb_per_s=kernel_bytes / (ms * 1e-3) / 1e12, splits_run=splits_run,
+        partials_ms=cuda_ms(lambda: dec.decode_attention_partials(dec_q, dec_k, dec_v, dec_len, block_s=DECODE_BLOCK),
+                            20),
+        partials_kv_bytes=partials_kv_read)
     r = report["decode_attention"]
-    log(f"decode_attention (qwen3-8b) {r['shape']}: {r['ms']:.4f} ms (partials + merge), plain {r['plain_ms']:.4f} ms, "
-        f"SDPA with a cache_len mask {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-        f"({dec_bytes / 1e9:.3f} GB below cache_len)")
-    del dec_q, dec_k, dec_v, mask
+    log(f"decode_attention (qwen3-8b) {r['shape']}: {r['ms']:.4f} ms (split kernel + combine kernel), plain "
+        f"{r['plain_ms']:.4f} ms, SDPA with a cache_len mask {sdpa3:.4f} ms (3-D, float mask) / {sdpa4:.4f} ms "
+        f"(4-D, bool mask), bound {r['bound_ms']:.4f} ms ({dec_bytes / 1e9:.3f} GB below cache_len, "
+        f"{r['bound_ms'] / r['ms']:.3f} of it); the kernels move {kernel_bytes} B ({kv_read} B of K/V, "
+        f"{splits_run} splits of {dec.SPLIT} keys) at {r['kernel_tb_per_s']:.3f} TB/s; "
+        f"partials entry point {r['partials_ms']:.4f} ms "
+        f"({partials_kv_read} B of K/V: V of every tile)")
+    del dec_q, dec_k, dec_v, mask3, mask4, q4, k4, v4
 
     phases = {k: round(x, 6) for k, x in phases.items()}
     log(json.dumps({"phases": phases, "graph": {"scale": args.scale, "edge_factor": args.edge_factor,
@@ -693,6 +752,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "shape": r["shape"],
             **({"tc_launches": slice2_tc} if name == "flash_attention" else {}),
+            **({"merge_launches": slice2_merges} if name == "decode_attention" else {}),
+            **{key: r[key] for key in ("partials_ms", "sdpa_3d_mask_ms", "sdpa_4d_bool_mask_ms", "kernel_bytes",
+                                       "kernel_tb_per_s") if key in r},
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
         })

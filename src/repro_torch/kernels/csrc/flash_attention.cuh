@@ -1,7 +1,8 @@
 // Hopper building blocks of the tensor-core flash attention kernel
-// (flash_attention.cu): mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and the wgmma products it issues. Every function is a thin
-// wrapper of one PTX instruction (sm_90a), as the PTX ISA names it.
+// (flash_attention.cu) and of the decode kernel (decode_attention.cu):
+// mbarriers, TMA tile loads and 1-D bulk copies, wgmma shared-memory
+// descriptors and the wgmma products. Every function is a thin wrapper of
+// one PTX instruction (sm_90a), as the PTX ISA names it.
 #pragma once
 
 #include <cstdint>
@@ -59,6 +60,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+
+// `bytes` contiguous bytes of global memory at `src` into shared memory at
+// `dst` (1-D bulk copy: both 16-byte aligned, `bytes` a multiple of 16);
+// completion is reported to `bar` as transaction bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+               ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+               : "memory");
+}
+
+// Orders this thread's earlier generic-proxy accesses of shared memory before
+// later async-proxy (TMA) writes to it.
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
 // ---------------------------------------------------------- register budget
 template <uint32_t kRegs>

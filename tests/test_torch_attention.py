@@ -375,3 +375,110 @@ def test_decode_at_d96_matches_pallas_kernel():
                                                   scale=96**-0.5, block_s=128)
     assert o.shape[-1] == 128
     np.testing.assert_allclose(dec.merge_partials(o[..., :96], m, l)[0].numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------ the split-K decode's arithmetic
+# csrc/decode_attention.cu on the merged path cannot run here. This emulation
+# repeats its arithmetic on the CPU: each row's keys below cache_len in splits
+# of `split` keys, each split an online softmax over key tiles (16 KB of K a
+# tile, at most 64 keys) with m, l and o carried across the tiles; a split at
+# or past cache_len is neither computed nor merged; a row with cache_len = 0
+# scores all S keys -1e30 without reading K (every p is 1); the splits are
+# merged as merge_partials does. The limit is the existing decode tests' 2e-5.
+EMU_SPLIT = 128  # smaller than the kernel's SPLIT, so that the tests' caches hold several splits
+
+
+def _tile(d, dtype):
+    return min(64, 16384 // (fa.padded_head_dim(d, dec.HEAD_DIMS) * (2 if dtype == torch.bfloat16 else 4)))
+
+
+def _split_emulation(q, k, v, cache_len, *, split=EMU_SPLIT, softcap=None, scale=None):
+    tile = _tile(q.shape[-1], k.dtype)
+    q, k, v = q.float(), k.float(), v.float()
+    bh, gq, d = q.shape
+    s = k.shape[1]
+    scale = d**-0.5 if scale is None else scale
+    out = torch.empty((bh, gq, d))
+    for r in range(bh):
+        n = int(cache_len[r])
+        masked = n <= 0
+        end = s if masked else min(n, s)
+        parts = []
+        for j0 in range(0, end, split):
+            j1 = min(j0 + split, end)
+            m = torch.full((gq, 1), -torch.inf)
+            l = torch.zeros((gq, 1))
+            acc = torch.zeros((gq, d))
+            for t0 in range(j0, j1, tile):
+                t1 = min(t0 + tile, j1)
+                if masked:
+                    sc = torch.full((gq, t1 - t0), dec.NEG_INF)
+                else:
+                    sc = (q[r] @ k[r, t0:t1].T) * scale
+                    if softcap is not None:
+                        sc = softcap * torch.tanh(sc / softcap)
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                alpha, p = torch.exp(m - m_new), torch.exp(sc - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc, m = acc * alpha + p @ v[r, t0:t1], m_new
+            parts.append((acc / l.clamp_min(1e-30), m, l))
+        o, m, l = (torch.stack(x) for x in zip(*parts))
+        out[r] = dec.merge_partials(o, m, l, axis=0)[0]
+    return out
+
+
+@pytest.mark.parametrize("softcap", [None, 20.0])
+@pytest.mark.parametrize("bh,gq,s,d,block_s", DECODE_CASES)
+def test_split_arithmetic_matches_pallas_kernel(bh, gq, s, d, block_s, softcap):
+    jx, tx = _decode_inputs(bh, gq, s, d, seed=bh * 10 + gq)
+    want = np.asarray(J_ops.decode_attention(*jx, block_s=block_s, softcap=softcap))
+    got = _split_emulation(*tx, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize(
+    "bh,gq,s,d,kv_dtype,cache",
+    [
+        (3, 4, 512, 64, "f32", [0, 200, 512]),  # an empty row: the mean of all of v
+        (2, 4, 512, 128, "bf16", [77, 512]),  # a bf16 cache
+        (3, 8, 512, 64, "f32", [EMU_SPLIT - 1, EMU_SPLIT, EMU_SPLIT + 1]),  # at a split boundary
+        (3, 2, 512, 256, "bf16", [2 * EMU_SPLIT - 1, 2 * EMU_SPLIT, 2 * EMU_SPLIT + 1]),  # 32-key tiles
+    ],
+    ids=["empty-row", "bf16-cache", "split-boundary", "split-boundary-d256"],
+)
+def test_split_arithmetic_edges_match_pallas_kernel(bh, gq, s, d, kv_dtype, cache):
+    jx, tx = _decode_inputs(bh, gq, s, d, seed=41 + d, kv_dtype=kv_dtype, cache=cache)
+    want = np.asarray(J_dec.decode_attention(*jx, block_s=128))
+    got = _split_emulation(*tx)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    if cache[0] == 0:
+        np.testing.assert_allclose(got[0].numpy(), np.broadcast_to(tx[2][0].float().numpy().mean(0), (gq, d)),
+                                   rtol=1e-5, atol=1e-6)
+
+
+def test_split_arithmetic_at_d96_on_padded_operands():
+    """D = 96: the kernel reads K and V zero-padded to 128 columns and q
+    zero-extended in shared memory; the padded columns of o are dropped."""
+    jx, tx = _decode_inputs(2, 4, 512, 96, seed=31, kv_dtype="bf16", cache=[100, 512])
+    want = np.asarray(J_ops.decode_attention(*jx, block_s=128))
+    q, k, v, cl = tx
+    dp = fa.padded_head_dim(96, dec.HEAD_DIMS)
+    padded = _split_emulation(fa.kernel_operand(q, dp), fa.kernel_operand(k, dp), fa.kernel_operand(v, dp), cl,
+                              scale=96**-0.5)
+    assert padded.shape[-1] == dp and not padded[..., 96:].any()
+    np.testing.assert_allclose(padded[..., :96].numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("bh,gq,s,d,block_s", DECODE_CASES)
+def test_merging_only_tiles_below_cache_len_equals_merging_all(bh, gq, s, d, block_s):
+    """With every cache_len >= 1, a tile wholly past cache_len has weight
+    l * exp(-1e30 - m_max) = 0 exactly in the merge: leaving it out, as the
+    CUDA path does, changes nothing."""
+    _, (q, k, v, cl) = _decode_inputs(bh, gq, s, d, seed=51)
+    assert int(cl.min()) >= 1
+    o, m, l = dec.decode_attention_partials(q, k, v, cl, block_s=block_s)
+    every = dec.merge_partials(o, m, l)[0]
+    for r in range(bh):
+        n = -(-int(cl[r]) // block_s)
+        below = dec.merge_partials(o[r:r + 1, :n], m[r:r + 1, :n], l[r:r + 1, :n])[0]
+        torch.testing.assert_close(below[0], every[r], rtol=1e-6, atol=1e-6)

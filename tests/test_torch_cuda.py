@@ -256,6 +256,81 @@ def test_decode_kernel_matches_plain_version(cuda, bh, gq, s, d, block_s, softca
     torch.testing.assert_close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], rtol=1e-4, atol=1e-4)
 
 
+# The merged path: the split kernel over the keys below cache_len, then the
+# combine kernel; merge_partials must not run. cache_len covers an empty row
+# (the mean of v), one key, a split boundary and its neighbours, and a full row.
+S_MERGED = 3 * dec.SPLIT
+MERGED_CACHE = [0, 1, dec.SPLIT - 1, dec.SPLIT, dec.SPLIT + 1, S_MERGED]
+
+
+def _merged_case(cuda, monkeypatch, d, kv_dtype, gq, q_dtype, softcap=None, cache=MERGED_CACHE, s=S_MERGED,
+                 shifted=False):
+    gen = torch.Generator(device=cuda).manual_seed(d * 10 + gq)
+    bh = len(cache)
+    q = torch.randn((bh, gq, d), generator=gen, device=cuda).to(q_dtype)
+    if shifted:
+        k, v = (_shifted((bh, s, d), kv_dtype, gen, cuda) for _ in range(2))
+    else:
+        k, v = (torch.randn((bh, s, d), generator=gen, device=cuda).to(kv_dtype) for _ in range(2))
+    cl = torch.tensor(cache, dtype=torch.int32, device=cuda)
+    plain = dec.merge_partials
+    want = plain(*dec.decode_attention_partials_torch(q, k, v, cl, scale=d**-0.5, block_s=512 if s % 512 == 0 else s,
+                                                      softcap=softcap))[0]
+
+    def no_merge(*a, **kw):
+        raise AssertionError("the CUDA path must merge on the card, not through merge_partials")
+
+    monkeypatch.setattr(dec, "merge_partials", no_merge)
+    before, merges_before = dec.launches, dec.merge_launches
+    got = dec.decode_attention(q, k, v, cl, softcap=softcap)
+    torch.cuda.synchronize()
+    assert dec.launches == before + 1 and dec.merge_launches == merges_before + 1
+    assert got.shape == (bh, gq, d) and got.dtype == torch.float32 and got.device.type == "cuda"
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    if cache[0] == 0:  # an empty cache decodes to the mean of all of v
+        torch.testing.assert_close(got[0], v[0].float().mean(0).expand(gq, d), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [16, 96, 128, 256])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_merged_kernels_match_plain_version(cuda, monkeypatch, d, kv_dtype):
+    gq = {16: 1, 96: 5, 128: 8, 256: 8}[d]
+    q_dtype = torch.bfloat16 if (d // 16 + (kv_dtype == torch.float32)) % 2 else torch.float32
+    _merged_case(cuda, monkeypatch, d, kv_dtype, gq, q_dtype)
+
+
+@pytest.mark.parametrize("gq", [1, 4, 5, 8, 12])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16], ids=["q-f32", "q-bf16"])
+def test_decode_merged_kernels_across_query_heads(cuda, monkeypatch, gq, q_dtype):
+    _merged_case(cuda, monkeypatch, 128, torch.bfloat16, gq, q_dtype, softcap=30.0 if gq == 5 else None)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_decode_merged_kernels_take_unaligned_kv(cuda, monkeypatch, kv_dtype):
+    _merged_case(cuda, monkeypatch, 64, kv_dtype, 4, torch.float32, shifted=True)
+
+
+def test_decode_merged_kernels_combine_more_than_32_splits(cuda, monkeypatch):
+    """The combine kernel walks a row's splits 32 at a time."""
+    s = 40 * dec.SPLIT
+    _merged_case(cuda, monkeypatch, 128, torch.bfloat16, 4, torch.bfloat16, cache=[0, 33 * dec.SPLIT + 5, s], s=s)
+
+
+def test_decode_both_entry_points_past_65535_rows(cuda):
+    """70,000 cache rows: the split kernel's rows stride past the grid's y limit."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    bh, s, d = 70_000, 64, 32
+    q = torch.randn((bh, 2, d), generator=gen, device=cuda)
+    k, v = (torch.randn((bh, s, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(2))
+    cl = torch.randint(0, s + 1, (bh,), generator=gen, device=cuda, dtype=torch.int32)
+    want = dec.decode_attention_partials_torch(q, k, v, cl, scale=d**-0.5, block_s=32)
+    got = dec.decode_attention_partials(q, k, v, cl, block_s=32)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dec.decode_attention(q, k, v, cl, block_s=32), dec.merge_partials(*want)[0],
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_decode_wrapper_rejects_tiles_beyond_shared_memory(cuda):
     q, k = torch.zeros((1, 8, 64), device=cuda), torch.zeros((1, 1 << 14, 64), device=cuda)
     with pytest.raises(ValueError):
