@@ -60,7 +60,27 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``pack_windows`` at full size, and the call is timed again, whole and in
    phases (H2D and range check, packing, x windows, kernel, add-back,
    out-of-window pass), with a synchronize after each phase;
-7. each kernel's time (CUDA events) beside its bound, the plain version's
+7. path 3, the streaming engine at full width, with every launch count set
+   to 0 just before it: the slice-1 graph and GEO order in an
+   ``IncrementalOrderer`` of 16 regions, a ``StreamingEngine`` on the card
+   with device span repair, 9 batches of 1,024 ``SyntheticStream`` updates
+   with a monitor after each (span repairs forced by ``partial_drift`` 1.0,
+   the full rung held off), rescales 16→20 after batch 4 and 20→12 after
+   batch 8 through the compact gather, the pack checked byte-equal to the
+   host ``pack_slots`` oracle after the first batch, each span repair, each
+   rescale and the last batch, and PageRank on the live pack held against
+   PageRank on the oracle pack; per batch the host apply and device scatter
+   times, per repair the device program and host mirror times, per rescale
+   its parts and bytes. No kernel of the port launches there;
+8. path 4, the rungs with their selection on the card, at RMAT scale 14
+   (8 regions, objective k in [4, 32]), with every launch count set to 0
+   just before it: an engine in ``differential`` span and full mode and one
+   in ``device`` full mode with two batches in flight, one rebuild aborted by
+   a rescale and one committed, each event checked against ``pack_slots``;
+   ``segment_rf`` must launch exactly twice per selection on the card. Then
+   the rungs' device programs alone against their host mirrors: the span
+   order and selection on path 3's last span, the greedy on path 4's slots;
+9. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes. A bound counts the bytes the
    function must move from this run's inputs (for ``edge_spmv``: its three
@@ -72,7 +92,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    faster is the library time), with the bytes the split kernel reads and
    the rate it reaches.
 
-Output: phase lines, then the card line, one ``{"kernels": [...]}`` JSON line
+Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
+stream paths' readings, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
 prints no result.
@@ -80,6 +101,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import subprocess
@@ -112,6 +134,18 @@ GEMMA2 = dict(heads=16, kv_heads=8, head_dim=256, window=4096, softcap=50.0)
 PREFILL_SEQ = 8192
 DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
 FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
+# Path 3, the stream at full width: the slice-1 graph over 16 regions (span
+# repairs forced by partial_drift 1.0, the full rung held off by full_drift 99),
+# batches of 1,024 updates, rescales 16→20 after batch 4 and 20→12 after batch 8.
+# 9 batches, cut from 12: each costs 13–22 s of host time at RMAT-20 (apply,
+# span mirror, two oracle checks), and 12 took the smoke to 800 s on an H100.
+STREAM_REGIONS, STREAM_BATCH, STREAM_BATCHES = 16, 1024, 9
+STREAM_RESCALES = {4: 20, 8: 12}
+# Path 4, both rungs with selection on the card, at a reduced size: RMAT scale
+# 14. The objective range is k in [4, 32]: at [4, 128] the greedy's int32
+# priority bound is 2.78e9 on this graph and the engine would apply the host
+# order instead of running the greedy (its int32 fallback).
+RUNGS_SCALE, RUNGS_REGIONS, RUNGS_BATCH, RUNGS_K_MAX = 14, 8, 1024, 32
 
 
 def decode_cache_lengths(rows: int) -> np.ndarray:
@@ -223,6 +257,267 @@ def visible_pairs(s: int, causal: bool, window: int | None) -> int:
     hi = q + 1 if causal else np.full(s, s)
     lo = np.maximum(q - window + 1, 0) if window is not None else np.zeros(s, dtype=np.int64)
     return int((hi - lo).sum())
+
+
+def span_sums(tracer) -> dict:
+    """Seconds by span name over the tracer's retained spans."""
+    out: dict = {}
+    for sp in tracer.spans():
+        out[sp.name] = out.get(sp.name, 0.0) + sp.duration_s
+    return out
+
+
+def stream_path(g, src, dst, dev, phases: dict) -> dict:
+    """Path 3: the streaming engine on the slice-1 graph and GEO order at full
+    width. Every ingest, span repair and rescale runs on ``dev``; the pack is
+    checked against the host ``pack_slots`` oracle after the first batch,
+    each span repair, each rescale and the last batch. Returns readings."""
+    from repro_torch.graphs import engine as E
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    v = g.num_vertices
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    orderer = IncrementalOrderer(src.astype(np.int64), dst.astype(np.int64), v, regions=STREAM_REGIONS,
+                                 config=StreamConfig(partial_drift=1.0, full_drift=99.0, span_regions=1))
+    phases["stream_orderer_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = StreamingEngine(orderer, device=dev, span_repair="device", tracer=tracer)
+    phases["stream_upload_s"] = time.perf_counter() - t0
+    edges_b, mask_b = (t.numel() * t.element_size() for t in (eng.data.edges, eng.data.mask))
+    log(f"stream: {STREAM_BATCHES} batches of {STREAM_BATCH} updates (cut from 12 for the run's time: the "
+        f"host's apply, span mirror and oracle checks take 13-22 s a batch at RMAT-20; the graph is not cut)")
+    log(f"stream: {orderer.num_edges} edges in {orderer.capacity} slots over {orderer.regions} regions, "
+        f"edges {edges_b} B and mask {mask_b} B on {dev}; orderer {phases['stream_orderer_s']:.3f} s, "
+        f"pack_slots + upload {phases['stream_upload_s']:.3f} s")
+    t0 = time.perf_counter()
+    stream = SyntheticStream(g, batch_size=STREAM_BATCH, seed=0)
+    phases["stream_generator_s"] = time.perf_counter() - t0
+    checks: list = []
+
+    def verify(what: str) -> None:
+        t = time.perf_counter()
+        eng.verify_bit_identity()
+        checks.append(what)
+        log(f"stream: bit-identical to pack_slots after {what} ({time.perf_counter() - t:.3f} s to check)")
+
+    rows, repairs, rescales = [], [], []
+    for b in range(1, STREAM_BATCHES + 1):
+        tracer.clear()
+        st = eng.ingest(stream.batch())
+        rung = eng.monitor()
+        sp = span_sums(tracer)
+        row = dict(batch=b, inserted=st.inserted, deleted=st.deleted, scatter_ops=st.scatter_ops,
+                   apply_ms=sp["ingest.apply"] * 1e3, device_ms=sp["ingest.device"] * 1e3, rung=rung,
+                   repair=eng.last_repair, drift=orderer.drift())
+        if rung == "partial" and eng.last_repair == "device":
+            row.update(span_device_ms=sp["rung.span_device"] * 1e3, span_mirror_ms=sp["rung.span_mirror"] * 1e3)
+            repairs.append(row)
+        rows.append(row)
+        log(f"stream batch {b}: +{st.inserted} -{st.deleted} ({st.scatter_ops} slot ops): host apply "
+            f"{row['apply_ms']:.3f} ms, device scatter {row['device_ms']:.3f} ms; monitor: {rung} "
+            f"({eng.last_repair or '-'}), drift {row['drift']:.6f}"
+            + (f"; span rung: device {row['span_device_ms']:.3f} ms, host mirror {row['span_mirror_ms']:.3f} ms"
+               if "span_device_ms" in row else ""))
+        if b == 1:
+            verify("the first batch")
+        if "span_device_ms" in row:
+            verify(f"span repair at batch {b}")
+        if b in STREAM_RESCALES:
+            tracer.clear()
+            rs = eng.rescale(STREAM_RESCALES[b])
+            sp = span_sums(tracer)
+            slots_new = eng.data.edges.shape[0] * eng.data.edges.shape[1]
+            # The compact moves, on the card: the gather map up (two int32
+            # indices and an f32 mask a slot), the old edges read at the
+            # gathered slots, the new edges and mask written.
+            compact_bytes = slots_new * (4 + 4 + 4) + slots_new * 8 * 2 + slots_new * 4
+            rescales.append(dict(k_old=rs.k_old, k_new=rs.k_new, ms=rs.elapsed_s * 1e3,
+                                 relayout_ms=sp["rescale.relayout"] * 1e3, compact_ms=sp["rescale.compact"] * 1e3,
+                                 moved_edges=rs.moved_edges, moved_bytes=rs.moved_edges * 8,
+                                 cep_plan_edges=rs.cep_plan_edges, compact_bytes=compact_bytes))
+            r = rescales[-1]
+            log(f"stream rescale {rs.k_old}->{rs.k_new}: {r['ms']:.3f} ms (host relayout {r['relayout_ms']:.3f} ms, "
+                f"gather-map upload + compact on the card {r['compact_ms']:.3f} ms); moved {rs.moved_edges} edges "
+                f"({r['moved_bytes']} B; the CEP plan would move {rs.cep_plan_edges}), compact moves {compact_bytes} B")
+            verify(f"rescale {rs.k_old}->{rs.k_new}")
+    verify("the last batch")
+    check(len(repairs) >= 3, f"stream: {len(repairs)} span repairs ran on the card, expected at least 3")
+    check(eng.k == STREAM_RESCALES[max(STREAM_RESCALES)], "stream: the last rescale did not land")
+    pr_live = E.pagerank(eng.data, iterations=20)
+    pr_oracle = E.pagerank(eng.oracle_pack(), iterations=20)
+    check(bool(torch.isfinite(pr_live).all()), "stream: PageRank on the live pack is not finite")
+    pr_rel = float(((pr_live - pr_oracle).abs() / pr_oracle.abs()).max())
+    check(pr_rel <= PAGERANK_RTOL, f"stream: PageRank on the live pack differs from the oracle pack's by rel {pr_rel}")
+    log(f"stream: PageRank on the live pack vs the uploaded pack_slots oracle: max rel diff {pr_rel:.3e} "
+        f"(limit {PAGERANK_RTOL}); {len(checks)} bit-identity checks passed")
+    r0, r1 = orderer.span_bounds()
+    return dict(batches=rows, span_repairs=repairs, rescales=rescales, checks=checks, pagerank_rel=pr_rel,
+                edges=orderer.num_edges, slots=orderer.capacity, span=(*orderer.span_arrays(r0, r1), v))
+
+
+def rungs_path(dev, phases: dict, segment_rf) -> dict:
+    """Path 4: both rungs with their selection on ``dev``, at RMAT scale 14.
+    Engine A repairs spans and rebuilds in ``differential`` mode (both
+    objectives on the card through ``segment_rf``); engine B rebuilds in
+    ``device`` mode with two batches in flight, one rebuild aborted by a
+    rescale and one committed. Every event is checked against ``pack_slots``.
+    Returns readings, with ``segment_rf``'s launches and selections."""
+    from repro_torch.core import ordering
+    from repro_torch.core.graph import rmat_graph
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    t0 = time.perf_counter()
+    g = rmat_graph(scale=RUNGS_SCALE, edge_factor=16, seed=0)
+    order = ordering.geo_order(g, k_min=4, k_max=RUNGS_K_MAX)
+    phases["rungs_graph_s"] = time.perf_counter() - t0
+    src, dst = g.src[order].astype(np.int64), g.dst[order].astype(np.int64)
+    log(f"rungs: RMAT scale {RUNGS_SCALE}, |V|={g.num_vertices} |E|={g.num_edges}, {RUNGS_REGIONS} regions, "
+        f"objective k in [4, {RUNGS_K_MAX}] (cut from the stream path's RMAT-20: the greedy runs |V_selected| "
+        f"sequential steps and 'differential' needs host geo_order candidates)")
+    cfg = dict(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=RUNGS_K_MAX)
+    events: list = []
+    selections = 0
+
+    def forced_monitor(eng) -> str:
+        eng.orderer.drift = lambda: 200.0  # over full_drift: the full rung fires
+        rung = eng.monitor()
+        del eng.orderer.drift
+        return rung
+
+    def record(eng, what: str) -> None:
+        eng.verify_bit_identity()
+        events.append(what)
+
+    # Engine A: differential span and full rungs, one batch in flight.
+    tracer = Tracer()
+    o = IncrementalOrderer(src, dst, g.num_vertices, regions=RUNGS_REGIONS, config=StreamConfig(**cfg))
+    eng = StreamingEngine(o, device=dev, span_repair="differential", full_rebuild="differential",
+                          rebuild_flight=1, tracer=tracer)
+    stream = SyntheticStream(g, batch_size=RUNGS_BATCH, seed=1)
+    for b in range(1, 6):
+        eng.ingest(stream.batch())
+        record(eng, f"A batch {b}")
+        rung = forced_monitor(eng) if b == 2 else eng.monitor()
+        if eng.last_repair == "differential" and rung == "partial":
+            selections += 1  # a span selection: both objectives on the card
+        record(eng, f"A monitor {b} ({rung}, {eng.rebuild_state or eng.last_repair})")
+    log_a = eng.drain_rebuild_events()
+    check([(r["mode"], r["committed"]) for r in log_a] == [("differential", True)],
+          f"rungs: engine A's rebuild log {log_a}")
+    selections += 1  # the full selection of its rebuild
+    sp = span_sums(tracer)
+    a_read = dict(rebuild=log_a[0], span_mirror_s=sp.get("rung.span_mirror", 0.0),
+                  span_device_s=sp.get("rung.span_device", 0.0), rung_counts=dict(eng.rung_counts))
+    del eng, o
+
+    # Engine B: device greedy, two batches in flight; a rescale aborts the
+    # first flight, the second commits.
+    o = IncrementalOrderer(src, dst, g.num_vertices, regions=RUNGS_REGIONS, config=StreamConfig(**cfg))
+    eng = StreamingEngine(o, device=dev, full_rebuild="device", rebuild_flight=2)
+    stream = SyntheticStream(g, batch_size=RUNGS_BATCH, seed=2)
+    for b in range(1, 9):
+        if b == 4:
+            rs = eng.rescale(RUNGS_REGIONS + 2)
+            record(eng, f"B rescale {rs.k_old}->{rs.k_new} (aborts the flight)")
+        eng.ingest(stream.batch())
+        record(eng, f"B batch {b}")
+        rung = forced_monitor(eng) if b in (2, 5) else eng.monitor()
+        record(eng, f"B monitor {b} ({rung}, {eng.rebuild_state or eng.last_repair})")
+    log_b = eng.drain_rebuild_events()
+    check([(r["aborted"], r["committed"]) for r in log_b] == [(True, False), (False, True)],
+          f"rungs: engine B's rebuild log {log_b}")
+    check(log_b[1]["flight_batches"] == 2 and log_b[1]["splice_ops"] > 0,
+          "rungs: the committed device flight must splice the batches ingested during it")
+    for r in log_a + log_b:
+        log(f"rungs rebuild: mode {r['mode']}, committed {r['committed']}, aborted {r['aborted']}, "
+            f"{r['flight_batches']} batches in flight, {r['splice_ops']} slot ops spliced, "
+            f"dispatch {r['dispatch_s'] * 1e3:.3f} ms (host: mirror + enqueue), commit {r['commit_s'] * 1e3:.3f} ms")
+    launches = segment_rf.launches
+    check(selections > 0 and launches == 2 * selections,
+          f"rungs: segment_rf launched {launches} times for {selections} device selections, expected 2 each")
+    log(f"rungs: {len(events)} bit-identity checks passed; {selections} device selections, segment_rf "
+        f"launched {launches} times (2 each)")
+    return dict(a=a_read, rebuilds=log_a + log_b, checks=len(events), selections=selections, launches=launches,
+                slots=(o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy(), g.num_vertices))
+
+
+def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
+    """The rungs' device programs alone, each held exactly against its host
+    mirror on the same slots: the span order and the span selection on path
+    3's last worst span (full width), and the step-parallel greedy on path
+    4's final slots, run for the mirror's step count. Times: the card's (CUDA
+    events) and the host's enqueue; the mirror's on the host clock."""
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import span_reorder as SRK
+
+    out = {}
+    u, v, valid, nv = stream_span
+    ut, vt = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (u, v))
+    vd = torch.from_numpy(valid).to(dev)
+    ks = SRK.eval_ks(4, 128)
+    cand = SRK.identity_candidate(valid)
+    ct = torch.from_numpy(cand).to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end), enqueue * 1e3
+
+    t0 = time.perf_counter()
+    host_sel, _ = SRK.select_span_order_host(u, v, valid, nv, cand, ks)
+    mirror_ms = (time.perf_counter() - t0) * 1e3
+    got, order_ms, order_enq = timed(lambda: SRK.span_order_device(ut, vt, vd, nv))
+    check(np.array_equal(got.cpu().numpy(), SRK.span_order_host(u, v, valid, nv)),
+          "span_order_device differs from its host mirror at full width")
+    before = segment_rf.launches
+    got, sel_ms, sel_enq = timed(lambda: SRK.select_span_order_device(ut, vt, vd, nv, ct, ks, use_pallas=True))
+    check(np.array_equal(got.cpu().numpy(), host_sel), "select_span_order_device differs from its host mirror")
+    check(segment_rf.launches == before + 2, "the span selection must launch segment_rf twice")
+    # segment_rf at the selection's row shape: the sorted (chunk, rank) keys.
+    keys = torch.sort(SRK._chunk_keys_device(ut, vt, vd, ct, vd.sum(), ks), dim=-1).values.contiguous()
+    check(torch.equal(segment_rf.segment_distinct_counts(keys), segment_rf.segment_distinct_counts_torch(keys)),
+          "segment_rf parity failed on the span selection's key rows")
+    c_, w_ = keys.shape
+    out["segment_rf_rows"] = dict(
+        shape=[c_, w_], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(keys), 20),
+        plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(keys), 5),
+        bound_ms=(c_ * w_ * 4 + c_ * 4) / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+    out["span"] = dict(slots=int(u.shape[0]), live=int(valid.sum()), order_ms=order_ms, order_enqueue_ms=order_enq,
+                       select_ms=sel_ms, select_enqueue_ms=sel_enq, select_mirror_ms=mirror_ms)
+    log(f"span twin at path 3's span ({u.shape[0]} slots, {int(valid.sum())} live): order {order_ms:.3f} ms on "
+        f"the card ({order_enq:.3f} ms to enqueue); selection with both objectives {sel_ms:.3f} ms "
+        f"({sel_enq:.3f} ms to enqueue) against {mirror_ms:.3f} ms for the host mirror; equal to the mirror")
+    del ut, vt, vd, ct
+
+    u, v, valid, nv = rungs_slots
+    n = int(valid.sum())
+    deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
+    alpha, beta, delta = FRK.greedy_params(n, 4, RUNGS_K_MAX, int(deg.max()))
+    permpos = FRK.fallback_positions(nv)
+    t0 = time.perf_counter()
+    host_perm, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
+    mirror_ms = (time.perf_counter() - t0) * 1e3
+    ut, vt = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (u, v))
+    vd = torch.from_numpy(valid).to(dev)
+    pt = torch.from_numpy(permpos.astype(np.int32)).to(dev)
+    got, greedy_ms, greedy_enq = timed(
+        lambda: FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, steps=steps))
+    check(np.array_equal(got.cpu().numpy(), host_perm), "full_order_device differs from its host mirror")
+    out["greedy"] = dict(slots=int(u.shape[0]), live=n, steps=steps, ms=greedy_ms, enqueue_ms=greedy_enq,
+                         mirror_ms=mirror_ms)
+    log(f"greedy twin at path 4's size ({u.shape[0]} slots, {n} live, {steps} steps): {greedy_ms:.3f} ms on the "
+        f"card, {greedy_enq:.3f} ms to enqueue ({greedy_enq / steps * 1e3:.1f} us a step), host mirror "
+        f"{mirror_ms:.3f} ms; equal to the mirror")
+    return out
 
 
 def main() -> int:
@@ -612,6 +907,35 @@ def main() -> int:
     del spmv_out, qwen_out, gemma_out, dec_out, dec_plain
     torch.cuda.empty_cache()
 
+    # ------------------------------------------- path 3: the stream at full width
+    # span_repair="device" takes the host mirror's decision, so no objective
+    # runs on the card and no kernel of the port launches: the path's device
+    # work is torch ops (scatter, gather, label propagation, sorts).
+    reset_launches()
+    t0 = time.perf_counter()
+    stream_read = stream_path(g, src, dst, dev, phases)
+    torch.cuda.synchronize()
+    phases["stream_path_s"] = time.perf_counter() - t0
+    stream_launches = read_launches()
+    check(stream_launches == dict.fromkeys(KERNELS, 0), f"stream path launched {stream_launches}, expected none")
+    log(f"stream path: {phases['stream_path_s']:.3f} s, launches {stream_launches}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --------------------------- path 4: the rungs with their selection on the card
+    reset_launches()
+    t0 = time.perf_counter()
+    rungs_read = rungs_path(dev, phases, segment_rf)
+    torch.cuda.synchronize()
+    phases["rungs_path_s"] = time.perf_counter() - t0
+    rungs_launches = read_launches()
+    check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"]},
+          f"rungs path launched {rungs_launches}, expected segment_rf twice per selection and nothing else")
+    log(f"rungs path: {phases['rungs_path_s']:.3f} s, launches {rungs_launches}")
+    stream_twins = twin_times(dev, stream_read.pop("span"), rungs_read.pop("slots"), segment_rf)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
     c, w = rows16.shape
@@ -622,7 +946,8 @@ def main() -> int:
     report["segment_rf"].update(
         shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
         plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows16), 20),
-        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None)
+        bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
+        other_shapes=[stream_twins.pop("segment_rf_rows")])
     del rows16
 
     spmv_times = []
@@ -734,6 +1059,9 @@ def main() -> int:
         "decode_attention": "src/repro/kernels/decode_attention.py:76",
     }
     launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_}}
+    by_path = {"slice1": slice1_launches, "slice2": slice2_launches, "stream": stream_launches,
+               "rungs": rungs_launches}
+    log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -743,6 +1071,7 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": sources[name],
             "launches": launches[name],
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "parity": "exact" if name == "segment_rf" else "allclose",
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

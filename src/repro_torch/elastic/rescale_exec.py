@@ -50,15 +50,20 @@ EDGE_BYTES = 8  # (src, dst) int32 per packed edge row
 
 
 class ProgramCache:
-    """Bounded LRU of prepared rescale programs keyed by their static
-    shape/device signature. Keys are KIND-prefixed tuples (("migrate", ...))
-    so every program family of one runtime component shares a single cache,
-    and ``program_cache_size`` bounds all of them at once.
+    """Bounded LRU of prepared device programs keyed by their static
+    shape/device signature. A program is whatever its owner prepares once per
+    signature: a rescale's segment table and k_new mask, or a streaming
+    program family's prebuilt index tensors. Keys are KIND-prefixed tuples
+    (("migrate", ...), ("scatter", ...), ("compact", ...), ("span_repair",
+    ...), ("full_reorder", ...), ("splice", ...)) so every program family of
+    one runtime component shares a single cache, and ``program_cache_size``
+    bounds all of them at once (ElasticRescaler: migrate; StreamingEngine:
+    scatter + compact + span_repair + full_reorder + splice).
 
-    Per-kind hit/miss/eviction ``counters`` make the cache's behavior
-    auditable: a ``get`` returning a program is a hit, a ``get`` returning
-    None a miss (the caller builds and ``put``s), and ``put`` evicting an LRU
-    victim an eviction."""
+    Per-kind hit/miss/eviction ``counters`` (``counters_snapshot``) make the
+    cache's behavior auditable: a ``get`` returning a program is a hit, a
+    ``get`` returning None a miss (the caller builds and ``put``s), and
+    ``put`` evicting an LRU victim an eviction — so misses == builds."""
 
     def __init__(self, size: int):
         if size < 1:
@@ -67,6 +72,7 @@ class ProgramCache:
         self._programs: collections.OrderedDict = collections.OrderedDict()
         # kind (key[0] for tuple keys, "?" otherwise) → {hits, misses, evictions}
         self.counters: dict = {}
+        self._counters_shared = False  # a snapshot aliases self.counters
 
     def __len__(self) -> int:
         return len(self._programs)
@@ -77,10 +83,27 @@ class ProgramCache:
     def __iter__(self):
         return iter(self._programs)  # keys, least- to most-recently used
 
+    @staticmethod
+    def _kind(key) -> str:
+        return str(key[0]) if isinstance(key, tuple) and key else "?"
+
     def _count(self, key, event: str) -> None:
-        kind = str(key[0]) if isinstance(key, tuple) and key else "?"
-        c = self.counters.setdefault(kind, {"hits": 0, "misses": 0, "evictions": 0})
+        if self._counters_shared:
+            # Copy-on-write: a snapshot handed out earlier aliases the live
+            # dicts — clone before mutating so every outstanding snapshot
+            # stays frozen at its emit-time values.
+            self.counters = {kind: dict(c) for kind, c in self.counters.items()}
+            self._counters_shared = False
+        c = self.counters.setdefault(self._kind(key), {"hits": 0, "misses": 0, "evictions": 0})
         c[event] += 1
+
+    def counters_snapshot(self) -> dict:
+        """Per-kind counters, isolated from later cache activity. The live
+        mapping is returned and cloned before the cache's next mutation
+        (copy-on-write), so a snapshot per event costs a flag set, not a deep
+        copy. Callers must treat the result as immutable."""
+        self._counters_shared = True
+        return self.counters
 
     def get(self, key):
         cached = self._programs.get(key)
@@ -90,6 +113,18 @@ class ProgramCache:
         else:
             self._count(key, "misses")
         return cached
+
+    def touch(self, key) -> bool:
+        """Refresh recency if present (counted as a hit). Unlike ``get``, an
+        absent key counts nothing — warm-up helpers probe with this before
+        building, and the build's own ``get`` miss then counts it exactly
+        once, keeping misses == builds."""
+        cached = self._programs.get(key)
+        if cached is not None:
+            self._programs.move_to_end(key)
+            self._count(key, "hits")
+            return True
+        return False
 
     def put(self, key, value):
         self._programs[key] = value

@@ -9,6 +9,11 @@ to the device, where the degrees and the quality metrics (mirrors,
 replication factor) are measured — the per-chunk distinct-vertex counts
 through the CUDA ``segment_rf`` kernel (kernels/ops.py).
 
+``ShardedEngineData`` is the same pack laid out over the ``graph`` axis
+(``launch/sharding.py``): the streaming engine keeps its live pack in it. This
+package runs a world of one rank, where the two layouts are bit-identical and
+the GAS apps take either.
+
 The GAS apps keep the JAX package's update rules, written as ``index_add_``
 and ``scatter_reduce_(…, "amin")`` on the data's device. Float sums are taken
 in another order than XLA's (CUDA scatter-add uses atomics), so PageRank
@@ -26,6 +31,7 @@ from ..compat import resolve_device
 from ..core import cep
 from ..core.graph import Graph
 from ..kernels import ops
+from ..launch import sharding as SH
 
 __all__ = [
     "EngineData",
@@ -35,6 +41,11 @@ __all__ = [
     "unpack_ordered",
     "cep_engine_data",
     "engine_data_from_arrays",
+    "ShardedEngineData",
+    "shard_engine_data",
+    "unshard_engine_data",
+    "host_pack_slots",
+    "pack_slots",
     "pagerank",
     "sssp",
     "wcc",
@@ -185,6 +196,156 @@ def engine_data_from_arrays(
         mirrors=int(mirrors),
         replication_factor=float(replication_factor),
         num_edges=int(num_edges),
+    )
+
+
+# ------------------------------------------------------------ sharded layout
+def _check_world(g: int) -> None:
+    if g != 1:
+        raise NotImplementedError(
+            f"a graph axis of {g} ranks: the multi-rank layout is ROADMAP.md queue A2; "
+            "this package runs a world of one rank"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedEngineData:
+    """``EngineData`` laid out over the ``graph`` axis of g ranks.
+
+    ``edges``/``mask`` are (k_pad, E_max, 2) / (k_pad, E_max) with
+    k_pad = ⌈k/g⌉·g, rows in rank-major round-robin order (partition p on rank
+    p % g, at row ``launch.sharding.partition_row(p, k, g)``). Rows whose
+    partition id ≥ k are padding: all-zero, fully masked. ``degrees`` is
+    replicated. The layout is written for any g; this package runs a world of
+    one rank (g = 1), where it is bit-identical to ``EngineData``, and the GAS
+    apps take it unchanged."""
+
+    edges: torch.Tensor  # (k_pad, E_max, 2) int32
+    mask: torch.Tensor  # (k_pad, E_max) f32
+    degrees: torch.Tensor  # (V,) f32, replicated
+    num_vertices: int
+    k: int  # logical partition count (rows may exceed it)
+    devices: int  # g, the graph-axis size (the reference carries its mesh here)
+    mirrors: int
+    replication_factor: float
+    num_edges: int = 0
+
+    @property
+    def k_pad(self) -> int:
+        return int(self.edges.shape[0])
+
+    @property
+    def rows_per_device(self) -> int:
+        return self.k_pad // self.devices
+
+    def partition_device(self, p: int) -> int:
+        return SH.partition_device(p, self.devices)
+
+
+def _partition_rows(k: int, g: int, device) -> torch.Tensor:
+    return torch.tensor([SH.partition_row(p, k, g) for p in range(k)], dtype=torch.int64, device=device)
+
+
+def shard_engine_data(data: EngineData, g: int = 1) -> ShardedEngineData:
+    """Lay a packed ``EngineData`` out over a graph axis of ``g`` ranks, on
+    the data's device. g > 1 raises ``NotImplementedError``."""
+    _check_world(g)
+    k = data.k
+    k_pad = SH.padded_partition_count(k, g)
+    e_max = int(data.edges.shape[1])
+    dev = data.edges.device
+    rows = _partition_rows(k, g, dev)
+    edges = torch.zeros((k_pad, e_max, 2), dtype=torch.int32, device=dev)
+    mask = torch.zeros((k_pad, e_max), dtype=torch.float32, device=dev)
+    edges[rows] = data.edges
+    mask[rows] = data.mask
+    return ShardedEngineData(
+        edges=edges,
+        mask=mask,
+        degrees=data.degrees.clone(),
+        num_vertices=data.num_vertices,
+        k=k,
+        devices=g,
+        mirrors=data.mirrors,
+        replication_factor=data.replication_factor,
+        num_edges=data.num_edges,
+    )
+
+
+def unshard_engine_data(sdata: ShardedEngineData) -> EngineData:
+    """Inverse of ``shard_engine_data``: rows un-permuted back to the
+    partition-major pack (the bit-identity oracle layout), on the same device."""
+    _check_world(sdata.devices)
+    rows = _partition_rows(sdata.k, sdata.devices, sdata.edges.device)
+    return EngineData(
+        edges=sdata.edges[rows],
+        mask=sdata.mask[rows],
+        degrees=sdata.degrees.clone(),
+        num_vertices=sdata.num_vertices,
+        k=sdata.k,
+        mirrors=sdata.mirrors,
+        replication_factor=sdata.replication_factor,
+        num_edges=sdata.num_edges,
+    )
+
+
+# ------------------------------------------------------------- slot layout
+def host_pack_slots(slot_src: np.ndarray, slot_dst: np.ndarray, slot_valid: np.ndarray, k: int, num_vertices: int):
+    """Host buffers of the streaming slot pack: numpy ``(edges (k, spr+1, 2)
+    int32, mask (k, spr+1) f32, degrees (V,) f32)``. See ``pack_slots``."""
+    slot_valid = np.asarray(slot_valid, dtype=bool)
+    c = int(slot_valid.shape[0])
+    if c % k:
+        raise ValueError(f"slot capacity {c} is not a multiple of k={k}")
+    spr = c // k
+    e_cap = spr + 1  # + scratch column
+    edges = np.zeros((k, e_cap, 2), dtype=np.int32)
+    mask = np.zeros((k, e_cap), dtype=np.float32)
+    edges[:, :spr, 0] = (np.asarray(slot_src) * slot_valid).reshape(k, spr)
+    edges[:, :spr, 1] = (np.asarray(slot_dst) * slot_valid).reshape(k, spr)
+    mask[:, :spr] = slot_valid.reshape(k, spr).astype(np.float32)
+    # Integer counts, exact in f32 below 2^24 — the JAX package's np.add.at of
+    # f32 ones gives the same bytes there, an order of magnitude slower.
+    deg = (
+        np.bincount(np.asarray(slot_src)[slot_valid], minlength=num_vertices)
+        + np.bincount(np.asarray(slot_dst)[slot_valid], minlength=num_vertices)
+    ).astype(np.float32)
+    return edges, mask, deg
+
+
+def pack_slots(
+    slot_src: np.ndarray,
+    slot_dst: np.ndarray,
+    slot_valid: np.ndarray,
+    k: int,
+    num_vertices: int,
+    *,
+    device=None,
+) -> EngineData:
+    """Pack a streaming slot array (stream/incremental.py) into engine buffers.
+
+    Region p's ``slots_per_region`` slots become partition p's first columns —
+    occupied slots keep their column (gaps are masked rows interleaved in
+    place, not compacted, so a host slot maps 1:1 to a device (row, col) and
+    an EdgeUpdateBatch applies as a scatter) — plus one trailing always-masked
+    scratch column that padded scatter ops target (stream/ingest.py). GAS
+    algorithms are mask-driven and run unchanged on this layout. This is the
+    streaming bit-identity oracle: it is built on the host and uploaded, and
+    on-device ingest must equal it byte for byte.
+    """
+    edges, mask, deg = host_pack_slots(slot_src, slot_dst, slot_valid, k, num_vertices)
+    dev = resolve_device(device)
+    # Quality metrics are monitored incrementally by the orderer, not carried
+    # on the pack (same convention as ElasticRescaler's recheck=False).
+    return EngineData(
+        edges=torch.from_numpy(edges).to(dev),
+        mask=torch.from_numpy(mask).to(dev),
+        degrees=torch.from_numpy(deg).to(dev),
+        num_vertices=num_vertices,
+        k=k,
+        mirrors=-1,
+        replication_factor=float("nan"),
+        num_edges=int(np.count_nonzero(slot_valid)),
     )
 
 
