@@ -363,11 +363,26 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     objectives on the card through ``segment_rf``); engine B rebuilds in
     ``device`` mode with two batches in flight, one rebuild aborted by a
     rescale and one committed. Every event is checked against ``pack_slots``.
-    Returns readings, with ``segment_rf``'s launches and selections."""
+    Every ``segment_rf`` launch of the path is tapped: its rows and counts are
+    kept and, once the launches are read, held exactly against the plain
+    version on those rows. Returns readings, with ``segment_rf``'s launches,
+    selections and the tapped launches' row shapes."""
     from repro_torch.core import ordering
     from repro_torch.core.graph import rmat_graph
+    from repro_torch.kernels import span_reorder as SRK
     from repro_torch.obs.trace import Tracer
     from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    # Both rungs' objectives call span_reorder's segment_distinct_counts; the
+    # tap calls the kernel's wrapper unchanged and keeps what it was given.
+    kernel, tapped = SRK.segment_distinct_counts, []
+
+    def tap(rows):
+        counts = kernel(rows)
+        tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    SRK.segment_distinct_counts = tap
 
     t0 = time.perf_counter()
     g = rmat_graph(scale=RUNGS_SCALE, edge_factor=16, seed=0)
@@ -435,13 +450,35 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
         log(f"rungs rebuild: mode {r['mode']}, committed {r['committed']}, aborted {r['aborted']}, "
             f"{r['flight_batches']} batches in flight, {r['splice_ops']} slot ops spliced, "
             f"dispatch {r['dispatch_s'] * 1e3:.3f} ms (host: mirror + enqueue), commit {r['commit_s'] * 1e3:.3f} ms")
+    SRK.segment_distinct_counts = kernel
     launches = segment_rf.launches
-    check(selections > 0 and launches == 2 * selections,
-          f"rungs: segment_rf launched {launches} times for {selections} device selections, expected 2 each")
+    check(selections > 0 and launches == 2 * selections == len(tapped),
+          f"rungs: segment_rf launched {launches} times ({len(tapped)} tapped) for {selections} device "
+          f"selections, expected 2 each")
     log(f"rungs: {len(events)} bit-identity checks passed; {selections} device selections, segment_rf "
         f"launched {launches} times (2 each)")
+    # The path's own launches against the plain version on the same rows.
+    max_err = 0
+    for i, (rows, counts) in enumerate(tapped):
+        want = segment_rf.segment_distinct_counts_torch(rows)
+        max_err = max(max_err, int((counts - want).abs().max()))
+        check(torch.equal(counts, want), f"rungs: segment_rf launch {i} at {tuple(rows.shape)} differs from the "
+                                         f"plain version")
+    shapes = [list(rows.shape) for rows, _ in tapped]
+    log(f"rungs: all {len(tapped)} segment_rf launches equal the plain version on their rows {shapes}")
+    widest = max((rows for rows, _ in tapped), key=lambda r: r.numel())
     return dict(a=a_read, rebuilds=log_a + log_b, checks=len(events), selections=selections, launches=launches,
+                segment_rf=dict(shapes=shapes, max_abs_err=max_err, widest=widest),
                 slots=(o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy(), g.num_vertices))
+
+
+def rows_timing(rows, segment_rf) -> dict:
+    """``segment_rf``'s time, its plain version's and its byte bound on one
+    (C, W) array of sorted key rows."""
+    c, w = rows.shape
+    return dict(shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows), 20),
+                plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows), 5),
+                bound_ms=(c * w * 4 + c * 4) / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
 
 
 def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
@@ -486,11 +523,7 @@ def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     keys = torch.sort(SRK._chunk_keys_device(ut, vt, vd, ct, vd.sum(), ks), dim=-1).values.contiguous()
     check(torch.equal(segment_rf.segment_distinct_counts(keys), segment_rf.segment_distinct_counts_torch(keys)),
           "segment_rf parity failed on the span selection's key rows")
-    c_, w_ = keys.shape
-    out["segment_rf_rows"] = dict(
-        shape=[c_, w_], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(keys), 20),
-        plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(keys), 5),
-        bound_ms=(c_ * w_ * 4 + c_ * 4) / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+    out["segment_rf_rows"] = rows_timing(keys, segment_rf)
     out["span"] = dict(slots=int(u.shape[0]), live=int(valid.sum()), order_ms=order_ms, order_enqueue_ms=order_enq,
                        select_ms=sel_ms, select_enqueue_ms=sel_enq, select_mirror_ms=mirror_ms)
     log(f"span twin at path 3's span ({u.shape[0]} slots, {int(valid.sum())} live): order {order_ms:.3f} ms on "
@@ -932,6 +965,8 @@ def main() -> int:
     check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"]},
           f"rungs path launched {rungs_launches}, expected segment_rf twice per selection and nothing else")
     log(f"rungs path: {phases['rungs_path_s']:.3f} s, launches {rungs_launches}")
+    rungs_rf = rungs_read.pop("segment_rf")
+    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"], rungs_rf["max_abs_err"])
     stream_twins = twin_times(dev, stream_read.pop("span"), rungs_read.pop("slots"), segment_rf)
     gc.collect()
     torch.cuda.empty_cache()
@@ -947,7 +982,8 @@ def main() -> int:
         shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
         plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows16), 20),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
-        other_shapes=[stream_twins.pop("segment_rf_rows")])
+        other_shapes=[stream_twins.pop("segment_rf_rows"), rows_timing(rungs_rf.pop("widest"), segment_rf)],
+        rungs_shapes=rungs_rf["shapes"])
     del rows16
 
     spmv_times = []
@@ -1086,6 +1122,7 @@ def main() -> int:
                                        "kernel_tb_per_s") if key in r},
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
+            **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
         })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

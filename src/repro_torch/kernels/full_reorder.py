@@ -26,9 +26,7 @@ so reading that condition would cost a device→host round trip per step.
 Instead ``full_order_device`` takes ``steps``, the step count T of the host
 mirror (which the engine always runs first: ``_select_full_order_host``), and
 enqueues exactly T steps with no synchronize. A step after every live edge is
-ordered changes no key (every degree is 0 then, so no edge is picked), which
-also lets ``steps=None`` run blocks of steps and read the condition once per
-block.
+ordered changes no key (every degree is 0 then, so no edge is picked).
 
 Candidate selection (``select_full_order_*``) scores the greedy order and a
 caller-supplied candidate by the span objective at whole-graph scope; the
@@ -40,7 +38,7 @@ overflow int32, so the two never diverge by wraparound.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -70,7 +68,6 @@ __all__ = [
 ]
 
 _PAD = int(PAD_ID)  # int32 max — dead-slot sort key
-_STEP_BLOCK = 64  # steps enqueued between condition reads when ``steps`` is None
 
 
 def greedy_fits_int32(num_edges: int, k_min: int, k_max: int, max_degree: int) -> bool:
@@ -259,7 +256,7 @@ def full_order_host(
 
 # ------------------------------------------------------------- device (torch)
 def full_order_device(
-    u, v, valid, num_vertices: int, alpha, beta, delta, permpos, *, steps: Optional[int] = None
+    u, v, valid, num_vertices: int, alpha, beta, delta, permpos, *, steps: int
 ) -> torch.Tensor:
     """Device twin of ``full_order_host``. ``u``/``v`` int32 (cap,), ``valid``
     bool (cap,), ``permpos`` int32 (|V|,), all on one device; ``alpha``,
@@ -267,8 +264,7 @@ def full_order_device(
     (cap,) int64 permutation, live slots first.
 
     ``steps`` is the greedy's step count (the host mirror's): exactly that
-    many steps are enqueued and nothing is read back. ``None`` reads the
-    loop condition once every ``_STEP_BLOCK`` steps instead."""
+    many steps are enqueued and nothing is read back."""
     cap = u.shape[0]
     nv = int(num_vertices)
     dev = u.device
@@ -276,7 +272,6 @@ def full_order_device(
     valid = valid.bool()
     ui = u.long()
     vi = v.long()
-    e_live = valid.sum()
     # Per-vertex state carries one dump row at index nv: scatters from slots
     # that pick nothing land there, and no read of a real vertex sees it.
     d = torch.zeros(nv + 1, dtype=i32, device=dev)
@@ -342,15 +337,8 @@ def full_order_device(
         done = done | th
         i = i2.long()
 
-    if steps is not None:
-        for t in range(int(steps)):
-            body(t)
-    else:
-        t = 0
-        while t < nv and bool(i < e_live):
-            for _ in range(min(_STEP_BLOCK, nv - t)):
-                body(t)
-                t += 1
+    for t in range(int(steps)):
+        body(t)
     # The 5-key sort (step, phase, ka, kb, slot) — the whole-graph twin of the
     # span kernel's finish.
     return _lexsort_device((step, phase, ka, kb))
@@ -402,7 +390,7 @@ def select_full_order_host(
 
 def select_full_order_device(
     u, v, valid, num_vertices: int, candidate, ks, alpha, beta, delta, permpos,
-    *, use_pallas: bool, steps: Optional[int] = None,
+    *, use_pallas: bool, steps: int,
 ) -> torch.Tensor:
     """Device twin of ``select_full_order_host`` (returns only the chosen
     permutation — the mirror recomputes the identical decision host-side)."""

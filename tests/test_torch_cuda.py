@@ -129,7 +129,7 @@ def test_edge_spmv_kernel_matches_plain_version(cuda, c, we, wv):
 
 
 def _dst_layout(layout, rng, c, we, wv):
-    if layout == "hub":  # one dst in every slot: one run across warps and blocks
+    if layout.startswith("hub"):  # one dst in every slot: one run across warps and blocks
         return np.full((c, we), 7)
     if layout == "alternating":  # no two neighbours share a dst
         return np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we))
@@ -144,18 +144,22 @@ def _dst_layout(layout, rng, c, we, wv):
 # chunk of W_E 4,097 spans 5 blocks, and 70,000 one-tile chunks make the first
 # blocks stride to a second chunk. W_E 981 is odd, so most rows start off a
 # 16-byte boundary.
-@pytest.mark.parametrize("layout,c,we,wv", [("hub", 3, 5_001, 512), ("alternating", 2, 9_999, 512),
+@pytest.mark.parametrize("layout,c,we,wv", [("hub", 3, 5_001, 512), ("hub-integer", 3, 5_001, 512),
+                                            ("alternating", 2, 9_999, 512),
                                             ("padding", 4, 3_000, 256), ("outside", 3, 4_097, 64),
                                             ("sorted", 5, 981, 100), ("sorted", 400, 4_097, 1024),
                                             ("sorted", 70_000, 3, 8)],
-                         ids=["hub", "alternating", "all-padding", "ids-outside", "odd-W_E", "many-chunks",
-                              "grid-strides"])
+                         ids=["hub", "hub-integer", "alternating", "all-padding", "ids-outside", "odd-W_E",
+                              "many-chunks", "grid-strides"])
 def test_edge_spmv_kernel_on_run_layouts(cuda, layout, c, we, wv):
     rng = np.random.default_rng(we)
     src = torch.from_numpy(rng.integers(0, wv, size=(c, we)).astype(np.int32)).to(cuda)
     dst = torch.from_numpy(np.ascontiguousarray(_dst_layout(layout, rng, c, we, wv), dtype=np.int32)).to(cuda)
-    w = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(cuda)
-    x = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(cuda)
+    # hub-integer: integers in [-8, 8], so every partial sum of the 5,001
+    # products (|Σ| ≤ 5,001·64 < 2²⁴) is exact in f32 in any order.
+    draw = (lambda shape: rng.integers(-8, 9, size=shape)) if layout == "hub-integer" else rng.standard_normal
+    w = torch.from_numpy(draw((c, we)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(draw((c, wv)).astype(np.float32)).to(cuda)
     before = edge_spmv.launches
     got = edge_spmv.spmv_blocked(src, dst, w, x)
     torch.cuda.synchronize()
@@ -165,17 +169,19 @@ def test_edge_spmv_kernel_on_run_layouts(cuda, layout, c, we, wv):
         # order: held against their float64 sum with a bound that holds for
         # any order of the f32 additions.
         _assert_within_summation_bound(got, src, dst, w, x)
+    elif layout == "hub-integer":
+        # Exact: one product dropped or added twice changes the sum.
+        exact, _, _ = _float64_sums(src, dst, w, x)
+        np.testing.assert_array_equal(got.double().cpu().numpy().reshape(-1), exact)
     else:
         torch.testing.assert_close(got, edge_spmv.spmv_blocked_torch(src, dst, w, x), rtol=1e-5, atol=1e-5)
     if layout == "padding":
         assert not bool(got.any())  # exact zeros
 
 
-def _assert_within_summation_bound(got, src, dst, w, x):
-    """|got − exact| ≤ n·2⁻²⁴·Σ|wᵢ·xᵢ|·(1 + n·2⁻²⁴) + 1e-30 per element, where
-    exact is the float64 sum of the float64 products of the same terms and n
-    the number of slots that reach the element: (n − 1) roundings of the f32
-    additions, in any order, and one rounding of each f32 product."""
+def _float64_sums(src, dst, w, x):
+    """Per flat output element: the float64 sum of the float64 products that
+    reach it, the sum of their magnitudes, and their number."""
     s, d = src.long().cpu().numpy(), dst.long().cpu().numpy()
     wv, xv = w.double().cpu().numpy(), x.double().cpu().numpy()
     c, w_v = xv.shape
@@ -183,9 +189,17 @@ def _assert_within_summation_bound(got, src, dst, w, x):
     ok = (s >= 0) & (s < w_v) & (d >= 0) & (d < w_v)
     flat = (rows * w_v + d)[ok]
     prod = wv[ok] * xv[rows[ok], s[ok]]
-    exact = np.bincount(flat, weights=prod, minlength=c * w_v)
-    mag = np.bincount(flat, weights=np.abs(prod), minlength=c * w_v)
-    n = np.bincount(flat, minlength=c * w_v)
+    size = c * w_v
+    return (np.bincount(flat, weights=prod, minlength=size), np.bincount(flat, weights=np.abs(prod), minlength=size),
+            np.bincount(flat, minlength=size))
+
+
+def _assert_within_summation_bound(got, src, dst, w, x):
+    """|got − exact| ≤ n·2⁻²⁴·Σ|wᵢ·xᵢ|·(1 + n·2⁻²⁴) + 1e-30 per element, where
+    exact is the float64 sum of the float64 products of the same terms and n
+    the number of slots that reach the element: (n − 1) roundings of the f32
+    additions, in any order, and one rounding of each f32 product."""
+    exact, mag, n = _float64_sums(src, dst, w, x)
     u = 2.0**-24
     bound = n * u * mag * (1 + n * u) + 1e-30
     err = np.abs(got.double().cpu().numpy().reshape(-1) - exact)
@@ -467,9 +481,8 @@ def test_stream_device_twins_on_cuda_equal_host_mirrors(cuda, case):
     permpos = FRK.fallback_positions(nv)
     pt = torch.from_numpy(permpos.astype(np.int32)).to(cuda)
     host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
-    for kw in (dict(steps=steps), dict(steps=None)):
-        np.testing.assert_array_equal(
-            FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, **kw).cpu().numpy(), host)
+    np.testing.assert_array_equal(
+        FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, steps=steps).cpu().numpy(), host)
     ks_full = FRK.eval_ks_full(4, 128, 4)
     cand = FRK.identity_candidate(valid)
     chosen, _, steps = FRK._select_full_order_host(u, v, valid, nv, cand, ks_full, alpha, beta, delta, permpos)
@@ -494,9 +507,11 @@ def test_stream_select_launches_segment_rf_twice(cuda):
     n = int(valid.sum())
     deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
     alpha, beta, delta = FRK.greedy_params(n, 4, 128, int(deg.max()))
-    pt = torch.from_numpy(FRK.fallback_positions(nv).astype(np.int32)).to(cuda)
+    permpos = FRK.fallback_positions(nv)
+    pt = torch.from_numpy(permpos.astype(np.int32)).to(cuda)
+    _, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
     FRK.select_full_order_device(ut, vt, vd, nv, cand, FRK.eval_ks_full(4, 128, 4), alpha, beta, delta, pt,
-                                 use_pallas=True)
+                                 use_pallas=True, steps=steps)
     torch.cuda.synchronize()
     assert segment_rf.launches == before + 4
 

@@ -237,7 +237,7 @@ def test_full_order_device_equals_jax_twin_and_host_mirror(case):
     want = np.asarray(J_FRK.full_order_device(
         u.astype(np.int32), v.astype(np.int32), valid, nv,
         np.int32(alpha), np.int32(beta), np.int32(delta), permpos.astype(np.int32)))
-    for kw in (dict(steps=steps), dict(steps=None), dict(steps=steps + 5)):  # extra steps change nothing
+    for kw in (dict(steps=steps), dict(steps=steps + 5)):  # extra steps change nothing
         got = FRK.full_order_device(_t(u), _t(v), torch.from_numpy(valid), nv, alpha, beta, delta,
                                     _t(permpos), **kw).numpy()
         np.testing.assert_array_equal(got, want)
