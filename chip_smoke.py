@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
     python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
+    python3 chip_smoke.py --cards 4       # on four cards: slice 1 and path 5 (a), (c) only
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -80,7 +81,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``segment_rf`` must launch exactly twice per selection on the card. Then
    the rungs' device programs alone against their host mirrors: the span
    order and selection on path 3's last span, the greedy on path 4's slots;
-9. each kernel's time (CUDA events) beside its bound, the plain version's
+9. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
+   once under ``build/multirank/`` for the ranks to load): (a) g = 4 ranks as
+   2 processes × 2 over gloo, every rank on the one card (NCCL refuses two
+   ranks of one communicator on one device), started by the port's
+   ``launch_local_cluster``: ``pack_ordered_sharded`` at k = 16 and 8,
+   rescales 16→17, 8→12→8 with ``verify=True``, PageRank / SSSP / WCC on the
+   k = 17 pack, ``snapshot_global``; (b) the same at 16→17 with one rank over
+   NCCL. Each rank writes its rows and results under ``build/multirank/``;
+   the parent holds the reassembled buffers byte-equal to slice 1's packs,
+   RF and mirrors equal, PageRank within rtol 1e-4 of slice 1's and SSSP /
+   WCC exactly, the edges across ranks and processes against the plan (and,
+   at RMAT-20, against their predicted counts), the bytes each rank sent and
+   received against the plan's cross-rank bytes, and requires every rank's
+   ``segment_rf`` launches (5 in (a), 2 in (b)), each exact against the plain
+   version on its rows. Each app runs twice in each rank and the second run is
+   its time (the first also loads the ops' kernels in that process).
+   ``--cards 4`` runs slice 1 and then only (a) and (c): g = 4 over NCCL, one
+   card per rank;
+10. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes. A bound counts the bytes the
    function must move from this run's inputs (for ``edge_spmv``: its three
@@ -93,7 +112,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    the rate it reaches.
 
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
-stream paths' readings, then the card line, one ``{"kernels": [...]}`` JSON line
+stream paths' readings, a ``{"multirank": ...}`` line of path 5's, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
 prints no result.
@@ -101,9 +120,11 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -146,6 +167,22 @@ STREAM_RESCALES = {4: 20, 8: 12}
 # priority bound is 2.78e9 on this graph and the engine would apply the host
 # order instead of running the greedy (its int32 fallback).
 RUNGS_SCALE, RUNGS_REGIONS, RUNGS_BATCH, RUNGS_K_MAX = 14, 8, 1024, 32
+# Path 5, the multi-rank main path on the slice-1 graph and GEO order: (a) g = 4
+# ranks as 2 processes x 2 over gloo, every rank on the one card (NCCL refuses
+# two ranks of one communicator on one device); (b) one rank over NCCL; with
+# --cards 4, (a) and (c) g = 4 over NCCL, one card per rank.
+MULTIRANK_PROCS, MULTIRANK_DEVS = 2, 2
+MULTIRANK_STEPS = dict(packs=[16, 8], rescales=[["16to17", "k16", 17], ["8to12", "k8", 12], ["12to8", "8to12", 8]],
+                       apps_on="16to17")
+MULTIRANK_STEPS_ONE = dict(packs=[16], rescales=[["16to17", "k16", 17]], apps_on="16to17")
+MULTIRANK_GROUP_TIMEOUT_S, MULTIRANK_TIMEOUT_S = 300.0, 900.0
+# (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
+# edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
+MULTIRANK_PLAN_COUNTS = {
+    (15_701_711, 4, 2, 16, 17): (7_850_856, 7_850_856, 4_156_336),
+    (15_701_711, 4, 2, 8, 12): (13_738_998, 11_776_284, 7_850_856),
+    (15_701_711, 4, 2, 12, 8): (13_738_998, 11_776_284, 7_850_856),
+}
 
 
 def decode_cache_lengths(rows: int) -> np.ndarray:
@@ -553,15 +590,220 @@ def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     return out
 
 
+def multirank_worker(run_dir: pathlib.Path) -> int:
+    """One rank of path 5 (``--rank-worker``, started by ``multirank_path``
+    through ``launch_local_cluster``): the sharded packs, the verified
+    rescales and the apps of the run's ``config.json`` on the rank's device,
+    every ``segment_rf`` launch tapped and held exactly against the plain
+    version on its rows afterwards. Writes ``rank{r}.npz`` (its rows and the
+    apps' vectors) and ``rank{r}.json`` (readings)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.elastic.rescale_exec import ElasticRescaler
+    from repro_torch.graphs import engine as E
+    from repro_torch.kernels import segment_rf
+    from repro_torch.launch import multihost as MH
+    from repro_torch.obs import metrics as OM
+
+    cfg = json.loads((run_dir / "config.json").read_text())
+    group = MH.initialize_from_env(timeout_s=cfg["timeout_s"])
+    r, dev = group.rank, group.torch_device
+    inputs = np.load(run_dir.parent / "ordered.npz")
+    src, dst, v = inputs["src"], inputs["dst"], cfg["num_vertices"]
+    kernel, tapped = segment_rf.segment_distinct_counts, []
+
+    def tap(rows):
+        counts = kernel(rows)
+        tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    segment_rf.segment_distinct_counts = tap  # ops looks it up at each call
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        return res, time.perf_counter() - t0
+
+    reg = OM.MetricsRegistry()
+    rx = ElasticRescaler(metrics_registry=reg)
+    arrays, meta = {}, dict(rank=r, device=str(dev), backend=group.backend, processes=list(group.processes))
+
+    def keep(name, d):
+        arrays[f"{name}_edges"], arrays[f"{name}_mask"] = d.edges.cpu().numpy(), d.mask.cpu().numpy()
+        meta[name] = dict(k=d.k, mirrors=d.mirrors, rf=d.replication_factor, rows=list(d.edges.shape))
+
+    datas = {}
+    for k in cfg["packs"]:
+        datas[f"k{k}"], meta[f"k{k}_pack_s"] = timed(lambda: E.pack_ordered_sharded(src, dst, v, k, group))
+        keep(f"k{k}", datas[f"k{k}"])
+    for name, base, k_new in cfg["rescales"]:
+        sent0, recv0 = (reg.counter(f"rescale.{c}_bytes").value for c in ("sent", "received"))
+        datas[name], st = rx.rescale(datas[base], k_new, verify=True)
+        keep(name, datas[name])
+        meta[name].update(stats=dataclasses.asdict(st), sent=reg.counter("rescale.sent_bytes").value - sent0,
+                          received=reg.counter("rescale.received_bytes").value - recv0)
+        print(f"rank {r}: rescale {name} in {st.elapsed_s * 1e3:.3f} ms, sent {meta[name]['sent']:.0f} B, "
+              f"received {meta[name]['received']:.0f} B", flush=True)
+    d = datas[cfg["apps_on"]]
+    apps = dict(pagerank=lambda: E.pagerank(d, iterations=20), sssp=lambda: E.sssp(d, source=cfg["source"]),
+                wcc=lambda: E.wcc(d))
+    for app, fn in apps.items():  # twice: the first run in this process also loads the ops' kernels
+        _, meta[f"{app}_first_s"] = timed(fn)
+        meta[f"{app}_result"], meta[f"{app}_s"] = timed(fn)
+    pr = meta.pop("pagerank_result")
+    ss, meta["sssp_iterations"] = meta.pop("sssp_result")
+    wc, meta["wcc_iterations"] = meta.pop("wcc_result")
+    arrays.update(pagerank=pr.cpu().numpy(), sssp=ss.cpu().numpy(), wcc=wc.cpu().numpy())
+    meta["snapshot_global"] = {k: np.atleast_1d(x).tolist() for k, x in reg.snapshot_global(group).items()}
+    segment_rf.segment_distinct_counts = kernel
+    meta["segment_rf_launches"] = segment_rf.launches
+    meta["segment_rf_tapped"] = [
+        dict(shape=list(rows.shape), exact=bool(torch.equal(counts, segment_rf.segment_distinct_counts_torch(rows))))
+        for rows, counts in tapped]
+    dist.destroy_process_group()
+    np.savez(run_dir / f"rank{r}.npz", **arrays)
+    (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
+    print(f"rank {r}: apps {meta['pagerank_s']:.3f} / {meta['sssp_s']:.3f} / {meta['wcc_s']:.3f} s (second runs), "
+          f"segment_rf launched {meta['segment_rf_launches']} times", flush=True)
+    return 0
+
+
+def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, devices: list, steps: dict,
+                   src: np.ndarray, dst: np.ndarray, v: int, source: int, want: dict) -> dict:
+    """Path 5: the main path over g = n_procs · devs_per_proc ranks started
+    by the port's ``launch_local_cluster``, each on its entry of ``devices``
+    over ``backend``. ``steps`` names the packs, the rescales (name, base,
+    k_new) and the pack the apps run on. The parent reassembles every rank's
+    rows and holds them byte-equal to slice 1's pack at each k (``want``:
+    the buffers, RF and mirrors by k, and slice 1's app results), PageRank
+    within ``PAGERANK_RTOL`` of slice 1's and SSSP / WCC exactly, the
+    cross-rank and cross-process edges against the plan, each rank's bytes
+    sent and received against the plan's cross-rank bytes, and every rank's
+    ``segment_rf`` launches exact against the plain version. Returns readings."""
+    from repro_torch.core import cep
+    from repro_torch.launch import multihost as MH
+    from repro_torch.launch import sharding as SH
+
+    g = n_procs * devs_per_proc
+    run_dir = ROOT / "build" / "multirank" / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    (run_dir / "config.json").write_text(json.dumps(dict(steps, num_vertices=v, source=source,
+                                                         timeout_s=MULTIRANK_GROUP_TIMEOUT_S)))
+    t0 = time.perf_counter()
+    res = MH.spawn_local_cluster(n_procs, devs_per_proc, [str(ROOT / "chip_smoke.py"), "--rank-worker", str(run_dir)],
+                                 backend=backend, devices=devices, timeout=MULTIRANK_TIMEOUT_S,
+                                 env_extra={"PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    for p in res.procs:
+        for line in p.stdout.splitlines():
+            log(f"path 5 ({tag}) {line}")
+    check(res.ok, f"path 5 ({tag}): a rank failed\n{res.format_logs()}")
+    ranks = [(dict(np.load(run_dir / f"rank{r}.npz")), json.loads((run_dir / f"rank{r}.json").read_text()))
+             for r in range(g)]
+    names = [f"k{k}" for k in steps["packs"]] + [name for name, _, _ in steps["rescales"]]
+    for name in names:
+        k = ranks[0][1][name]["k"]
+        rows = [SH.partition_row(p, k, g) for p in range(k)]
+        pad = np.setdiff1d(np.arange(SH.padded_partition_count(k, g)), rows)
+        for part in ("edges", "mask"):
+            whole = np.concatenate([a[f"{name}_{part}"] for a, _ in ranks])
+            ref = getattr(want["packs"][k], part)
+            check(whole[rows].tobytes() == ref.cpu().numpy().tobytes() and not whole[pad].any(),
+                  f"path 5 ({tag}): {name}'s {part}, reassembled, differ from slice 1's pack at k={k}")
+        check(all((m[name]["rf"], m[name]["mirrors"]) == want["quality"][k] for _, m in ranks),
+              f"path 5 ({tag}): {name}'s RF/mirrors differ from slice 1's")
+    plans = {}
+    for name, _, k_new in steps["rescales"]:
+        st = ranks[0][1][name]["stats"]
+        plan = plans[name] = cep.scale_plan(len(src), st["k_old"], k_new)
+        cross = sum(hi - lo for lo, hi, s, d in plan.moves if s % g != d % g)
+        xproc = sum(hi - lo for lo, hi, s, d in plan.moves if (s % g) // devs_per_proc != (d % g) // devs_per_proc)
+        check(all(m[name]["stats"] == {**st, "elapsed_s": m[name]["stats"]["elapsed_s"],
+                                       "recheck_s": m[name]["stats"]["recheck_s"]} for _, m in ranks),
+              f"path 5 ({tag}): the ranks' stats of {name} differ")
+        check(st["oracle_checked"] and (st["devices"], st["processes"]) == (g, n_procs),
+              f"path 5 ({tag}): {name} was not verified, or ran over another group")
+        check((st["cross_device_edges"], st["cross_process_edges"]) == (cross, xproc),
+              f"path 5 ({tag}): {name} counts {st['cross_device_edges']} / {st['cross_process_edges']} edges "
+              f"across ranks / processes, the plan {cross} / {xproc}")
+        expected = MULTIRANK_PLAN_COUNTS.get((len(src), g, n_procs, st["k_old"], k_new))
+        check(expected is None or (plan.migrated_edges, cross, xproc) == expected,
+              f"path 5 ({tag}): {name} moves {(plan.migrated_edges, cross, xproc)}, predicted {expected}")
+        sent = sum(m[name]["sent"] for _, m in ranks)
+        received = sum(m[name]["received"] for _, m in ranks)
+        check(sent == received == st["cross_device_bytes"],
+              f"path 5 ({tag}): {name} sent {sent} B and received {received} B, the plan crosses ranks with "
+              f"{st['cross_device_bytes']} B")
+    for i, (arrays, meta) in enumerate(ranks):
+        rel = rel_close(torch.from_numpy(arrays["pagerank"]), want["pagerank"].cpu(), PAGERANK_RTOL,
+                        f"path 5 ({tag}) rank {i}: PageRank against slice 1's")
+        check(np.array_equal(arrays["sssp"], want["sssp"].cpu().numpy()) and meta["sssp_iterations"] == want["sssp_it"],
+              f"path 5 ({tag}) rank {i}: SSSP differs from slice 1's")
+        check(np.array_equal(arrays["wcc"], want["wcc"].cpu().numpy()) and meta["wcc_iterations"] == want["wcc_it"],
+              f"path 5 ({tag}) rank {i}: WCC differs from slice 1's")
+        meta["pagerank_rel"] = rel
+        launches = meta["segment_rf_launches"]
+        check(launches == len(names) == len(meta["segment_rf_tapped"]) and all(t["exact"] for t in
+                                                                                meta["segment_rf_tapped"]),
+              f"path 5 ({tag}) rank {i}: segment_rf launched {launches} times for {len(names)} packs and "
+              f"re-checks, exact {[t['exact'] for t in meta['segment_rf_tapped']]}")
+        check(meta["snapshot_global"] == ranks[0][1]["snapshot_global"], f"path 5 ({tag}): global snapshots differ")
+    glob = ranks[0][1]["snapshot_global"]
+    total_cross = sum(ranks[0][1][name]["stats"]["cross_device_bytes"] for name, _, _ in steps["rescales"])
+    check(glob["rescale.sent_bytes"] == glob["rescale.received_bytes"] == [total_cross],
+          f"path 5 ({tag}): snapshot_global's sent/received bytes {glob['rescale.sent_bytes']} / "
+          f"{glob['rescale.received_bytes']}, expected {total_cross}")
+    out = dict(ranks=g, processes=n_procs, backend=backend, devices=devices, wall_s=wall, rescales={}, apps={},
+               segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
+               segment_rf_shapes=[[t["shape"] for t in m["segment_rf_tapped"]] for _, m in ranks])
+    for name, _, _ in steps["rescales"]:
+        st = ranks[0][1][name]["stats"]
+        ms = [m[name]["stats"]["elapsed_s"] * 1e3 for _, m in ranks]
+        out["rescales"][name] = dict(
+            ms_by_rank=ms, ms=max(ms), recheck_s=max(m[name]["stats"]["recheck_s"] for _, m in ranks),
+            sent_by_rank=[m[name]["sent"] for _, m in ranks], received_by_rank=[m[name]["received"] for _, m in ranks],
+            migrated_edges=st["migrated_edges"], cross_device_edges=st["cross_device_edges"],
+            cross_process_edges=st["cross_process_edges"], copy_ops=st["copy_ops"])
+        r5 = out["rescales"][name]
+        log(f"path 5 ({tag}) rescale {name}: {r5['ms']:.3f} ms (largest over the ranks; by rank "
+            f"{[round(x, 3) for x in ms]}), sent {r5['sent_by_rank']} B, received {r5['received_by_rank']} B by rank; "
+            f"{r5['migrated_edges']} edges migrate, {r5['cross_device_edges']} across ranks, "
+            f"{r5['cross_process_edges']} across processes (equal to the plan); re-check + verify up to "
+            f"{r5['recheck_s']:.3f} s")
+    for app in ("pagerank", "sssp", "wcc"):
+        out["apps"][f"{app}_s_by_rank"] = [m[f"{app}_s"] for _, m in ranks]
+        out["apps"][f"{app}_first_s_by_rank"] = [m[f"{app}_first_s"] for _, m in ranks]
+    out["pagerank_rel"] = max(m["pagerank_rel"] for _, m in ranks)
+    log(f"path 5 ({tag}): {g} ranks ({n_procs} processes x {devs_per_proc}) over {backend} on {sorted(set(devices))}, "
+        f"{wall:.3f} s in all; apps by rank, second run (first run): "
+        + "; ".join(f"{app} {[round(x, 3) for x in out['apps'][f'{app}_s_by_rank']]} s "
+                    f"({[round(x, 3) for x in out['apps'][f'{app}_first_s_by_rank']]})"
+                    for app in ("pagerank", "sssp", "wcc"))
+        + f"; PageRank max rel {out['pagerank_rel']:.3e} "
+        f"to slice 1's, SSSP and WCC equal; segment_rf launches by rank {out['segment_rf_launches']}, each exact")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
     ap.add_argument("--edge-factor", type=int, default=16, help="RMAT edges sampled per vertex")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="4: only slice 1 and path 5 (a) and (c), (c) being g = 4 ranks over NCCL, one card each")
+    ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.rank_worker is not None:
+        return multirank_worker(args.rank_worker)
+    check(args.cards in (1, 4) and torch.cuda.device_count() >= args.cards,
+          f"--cards {args.cards}: 1 or 4 cards, and {torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compat import PAD_ID
     from repro_torch.core import cep, metrics, ordering
@@ -594,8 +836,9 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    lib_paths = _build.build_all(KERNELS)
-    for name in KERNELS:
+    built = KERNELS if args.cards == 1 else ("segment_rf",)  # path 5 launches segment_rf only
+    lib_paths = _build.build_all(built)
+    for name in built:
         _build.load(name)
     phases["build_s"] = time.perf_counter() - t0
     log(f"build: {', '.join(p.name for p in lib_paths)} in {phases['build_s']:.3f} s")
@@ -603,14 +846,16 @@ def main() -> int:
         build_log = p.with_name(p.name + ".log")
         if build_log.exists():  # written by the build that made the library
             log(build_log.read_text().strip())
-    # The bf16 flash kernel must run on the tensor cores: HGMMA in its SASS.
-    cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_paths[KERNELS.index("flash_attention")])],
-                          capture_output=True, text=True, check=True).stdout
-    hgmma = {f.split()[0]: f.count("HGMMA") for f in sass.split("Function : ")[1:] if "flash_tc_kernel" in f.split()[0]}
-    check(len(hgmma) == len(fa.HEAD_DIMS) and all(hgmma.values()),
-          f"flash_attention: every tensor-core instantiation must issue HGMMA, got {hgmma}")
-    log(f"flash_attention SASS: HGMMA instructions per tensor-core instantiation {sorted(hgmma.values())}")
+    if "flash_attention" in built:
+        # The bf16 flash kernel must run on the tensor cores: HGMMA in its SASS.
+        cuobjdump = pathlib.Path(_build.find_nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib_paths[KERNELS.index("flash_attention")])],
+                              capture_output=True, text=True, check=True).stdout
+        hgmma = {f.split()[0]: f.count("HGMMA") for f in sass.split("Function : ")[1:]
+                 if "flash_tc_kernel" in f.split()[0]}
+        check(len(hgmma) == len(fa.HEAD_DIMS) and all(hgmma.values()),
+              f"flash_attention: every tensor-core instantiation must hold HGMMA instructions, got {hgmma}")
+        log(f"flash_attention SASS: HGMMA instructions per tensor-core instantiation {sorted(hgmma.values())}")
 
     # ------------------------------------------------------- graph + order
     t0 = time.perf_counter()
@@ -623,123 +868,124 @@ def main() -> int:
     n, v = g.num_edges, g.num_vertices
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
-    # ------------------------------------------------ kernel parity: segment_rf
-    rng = np.random.default_rng(0)
-    cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
-    cases += [(13, 1000), (9, 4097), (3, 3 * 4096 + 1), (5, 1), (1, 65535 * 4096 + 4097)]
-    t0 = time.perf_counter()
-    for c, w in cases:
-        rows = sorted_rows(rng, c, w, PAD_ID)
-        if (c, w) == (13, 1000):
-            rows[0] = PAD_ID  # an all-PAD row
-            rows[1] = 7  # a single distinct id, no padding
-            rows[2, :500], rows[2, 500:] = 7, PAD_ID  # a single id, then padding
-        t = torch.from_numpy(rows).to(dev)
-        got = segment_rf.segment_distinct_counts(t)
-        want = segment_rf.segment_distinct_counts_torch(t)
-        torch.cuda.synchronize()
-        report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
-                                                  int((got.long() - want.long()).abs().max()))
-        check(torch.equal(got, want), f"segment_rf parity failed at (C, W) = ({c}, {w})")
-        if c * w <= 1 << 16:
-            check(np.array_equal(got.cpu().numpy(), segment_distinct_counts_ref(rows, PAD_ID)),
-                  f"segment_rf differs from the numpy oracle at ({c}, {w})")
-        log(f"parity segment_rf (C, W) = ({c}, {w}): exact")
-        del t, got, want
-    all_pad = torch.full((8, 5000), PAD_ID, dtype=torch.int32, device=dev)
-    check(int(segment_rf.segment_distinct_counts(all_pad).abs().sum()) == 0, "all-PAD rows must count 0")
-
-    # ------------------------------------------------- kernel parity: edge_spmv
-    # dst layouts: "random", "hub" (one dst in every slot), "alternating" (no
-    # two neighbours share a dst), "sorted" (long runs, as GEO order makes).
-    for c, we, wv, lo, hi, layout in [
-            (2, 16, 32, 0, 33, "random"), (5, 64, 128, 0, 129, "random"), (3, 128, 256, 0, 257, "random"),
-            (1, 1, 8, 0, 8, "random"), (1, 300, 64, 64, 100, "random"), (4, 5000, 512, -3, 600, "random"),
-            (3, 5_001, 512, 0, 512, "hub"), (2, 9_999, 512, 0, 512, "alternating"),
-            (5, 40_001, 4096, -1, 4097, "sorted"), (700, 6_001, 1024, 0, 1025, "sorted"),
-            (70_000, 3, 8, 0, 9, "sorted")]:
-        src_ids = rng.integers(lo, hi, size=(c, we)).astype(np.int32)
-        dst_ids = {"random": lambda: rng.integers(lo, hi, size=(c, we)),
-                   "hub": lambda: np.full((c, we), 7),
-                   "alternating": lambda: np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we)),
-                   "sorted": lambda: np.sort(rng.integers(lo, hi, size=(c, we)), axis=1)}[layout]()
-        ids = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in (src_ids, dst_ids)]
-        w_t = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(dev)
-        x_t = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(dev)
-        got = edge_spmv.spmv_blocked(*ids, w_t, x_t)
-        what = f"(C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}), {layout} dst"
-        err = close(got, edge_spmv.spmv_blocked_torch(*ids, w_t, x_t), SPMV_PARITY_TOL, SPMV_PARITY_TOL,
-                    f"edge_spmv parity at {what}")
-        if lo >= wv:
-            check(not bool(got.any()), "edge_spmv: all-padding rows must add exactly 0")
-        report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], err)
-        log(f"parity edge_spmv {what}: max abs err {err:.3e}")
-
-    # ------------------------------------------- kernel parity: flash attention
     gen = torch.Generator(device=dev).manual_seed(0)
-    flash_cases = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
-                   (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
-                   (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
-                   (1, 2, 512, 256, 256, 50.0, True), (1, 2, 1000, 128, None, None, True),
-                   (1, 1, 777, 256, 300, 50.0, True),
-                   (1, 2, 512, 96, None, None, True), (1, 2, 700, 96, 200, 50.0, True)]  # D = 96: padded to 128
-    for b, h, s, d, window, softcap, causal in flash_cases:
-        for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL), (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
-            q, k, vv = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype) for _ in range(3))
-            kw = dict(causal=causal, window=window, softcap=softcap)
-            tc_before = fa.tc_launches
-            got = fa.flash_attention(q, k, vv, **kw)
-            check(got.dtype == dtype and got.shape == q.shape, "flash_attention: wrong output type or shape")
-            check(fa.tc_launches == tc_before + (dtype == torch.bfloat16),
-                  "flash_attention: bf16 must run the tensor-core kernel and f32 the CUDA-core kernel")
-            err = close(got, fa.flash_attention_torch(q, k, vv, **kw), rtol, atol,
-                        f"flash_attention parity at {(b, h, s, d)} {dtype} {kw}")
-            report["flash_attention"]["max_abs_err"] = max(report["flash_attention"]["max_abs_err"], err)
-            log(f"parity flash_attention (B, H, S, D) = {(b, h, s, d)} {str(dtype)[6:]} {kw}: max abs err {err:.3e}")
+    if args.cards == 1:  # the four-card call runs slice 1 and path 5 (c) only
+        # ------------------------------------------------ kernel parity: segment_rf
+        rng = np.random.default_rng(0)
+        cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
+        cases += [(13, 1000), (9, 4097), (3, 3 * 4096 + 1), (5, 1), (1, 65535 * 4096 + 4097)]
+        t0 = time.perf_counter()
+        for c, w in cases:
+            rows = sorted_rows(rng, c, w, PAD_ID)
+            if (c, w) == (13, 1000):
+                rows[0] = PAD_ID  # an all-PAD row
+                rows[1] = 7  # a single distinct id, no padding
+                rows[2, :500], rows[2, 500:] = 7, PAD_ID  # a single id, then padding
+            t = torch.from_numpy(rows).to(dev)
+            got = segment_rf.segment_distinct_counts(t)
+            want = segment_rf.segment_distinct_counts_torch(t)
+            torch.cuda.synchronize()
+            report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                                      int((got.long() - want.long()).abs().max()))
+            check(torch.equal(got, want), f"segment_rf parity failed at (C, W) = ({c}, {w})")
+            if c * w <= 1 << 16:
+                check(np.array_equal(got.cpu().numpy(), segment_distinct_counts_ref(rows, PAD_ID)),
+                      f"segment_rf differs from the numpy oracle at ({c}, {w})")
+            log(f"parity segment_rf (C, W) = ({c}, {w}): exact")
+            del t, got, want
+        all_pad = torch.full((8, 5000), PAD_ID, dtype=torch.int32, device=dev)
+        check(int(segment_rf.segment_distinct_counts(all_pad).abs().sum()) == 0, "all-PAD rows must count 0")
 
-    # ------------------------------------------ kernel parity: decode attention
-    decode_cases = [(2, 4, 512, 64, 128, None, torch.float32, None), (1, 1, 1024, 32, 256, None, torch.float32, None),
-                    (3, 8, 256, 128, 256, None, torch.float32, None),
-                    (3, 4, 512, 64, 128, None, torch.float32, [0, 200, 512]),
-                    (2, 4, 512, 128, 128, 20.0, torch.float32, None),
-                    (4, 4, 2048, 128, 512, None, torch.bfloat16, [1, 700, 1536, 2048]),
-                    (4, 4, 2048, 96, 512, None, torch.bfloat16, [1, 700, 1536, 2048])]  # D = 96: padded to 128
-    for bh, gq, s, d, block_s, softcap, kv_dtype, cache in decode_cases:
-        q = torch.randn((bh, gq, d), generator=gen, device=dev)
-        k, vv = (torch.randn((bh, s, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
-        cl = (torch.randint(1, s + 1, (bh,), generator=gen, device=dev, dtype=torch.int32) if cache is None
-              else torch.tensor(cache, dtype=torch.int32, device=dev))
-        got = dec.decode_attention_partials(q, k, vv, cl, block_s=block_s, softcap=softcap)
-        want = dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=block_s, softcap=softcap)
-        what = f"decode_attention parity at {(bh, gq, s, d, block_s)} softcap {softcap} {kv_dtype} cache_len {cache}"
-        err = max(close(gv, wv_, DECODE_TOL, DECODE_TOL, f"{what} ({name})") for name, gv, wv_ in zip("oml", got, want))
-        err = max(err, close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, what))
-        merged = dec.decode_attention(q, k, vv, cl, block_s=block_s, softcap=softcap)
-        err = max(err, close(merged, dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, f"{what} (merged)"))
-        if cache is not None and cache[0] == 0:
-            mean_v = vv[0].float().mean(0).expand(gq, d)
-            for name, out in (("partials", dec.merge_partials(*got)[0]), ("merged", merged)):
-                close(out[0], mean_v, DECODE_TOL, DECODE_TOL, f"cache_len = 0 must decode to the mean of v ({name})")
-        report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
-        log(f"parity decode_attention (BH, Gq, S, D, block_s) = {(bh, gq, s, d, block_s)} softcap {softcap} "
-            f"{str(kv_dtype)[6:]} cache_len {cache or 'random'}: max abs err {err:.3e} (partials and merged)")
-    # The merged path at split boundaries, an empty row, Gq 1 and 8, a bf16 query.
-    sp = dec.SPLIT
-    for gq, d, kv_dtype, q_dtype in [(4, 128, torch.bfloat16, torch.bfloat16), (8, 128, torch.float32, torch.float32),
-                                     (1, 96, torch.bfloat16, torch.float32), (8, 256, torch.bfloat16, torch.bfloat16)]:
-        cache = [0, 1, sp - 1, sp, sp + 1, 3 * sp]
-        q = torch.randn((len(cache), gq, d), generator=gen, device=dev).to(q_dtype)
-        k, vv = (torch.randn((len(cache), 3 * sp, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
-        cl = torch.tensor(cache, dtype=torch.int32, device=dev)
-        got = dec.decode_attention(q, k, vv, cl)
-        want = dec.merge_partials(*dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=512))[0]
-        what = f"decode_attention merged path at Gq {gq}, D {d}, {kv_dtype} cache, {q_dtype} q, cache_len {cache}"
-        err = close(got, want, DECODE_TOL, DECODE_TOL, what)
-        close(got[0], vv[0].float().mean(0).expand(gq, d), DECODE_TOL, DECODE_TOL,
-              f"{what}: cache_len = 0 must decode to the mean of v")
-        report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
-        log(f"parity {what}: max abs err {err:.3e}")
-    phases["parity_s"] = time.perf_counter() - t0
+        # ------------------------------------------------- kernel parity: edge_spmv
+        # dst layouts: "random", "hub" (one dst in every slot), "alternating" (no
+        # two neighbours share a dst), "sorted" (long runs, as GEO order makes).
+        for c, we, wv, lo, hi, layout in [
+                (2, 16, 32, 0, 33, "random"), (5, 64, 128, 0, 129, "random"), (3, 128, 256, 0, 257, "random"),
+                (1, 1, 8, 0, 8, "random"), (1, 300, 64, 64, 100, "random"), (4, 5000, 512, -3, 600, "random"),
+                (3, 5_001, 512, 0, 512, "hub"), (2, 9_999, 512, 0, 512, "alternating"),
+                (5, 40_001, 4096, -1, 4097, "sorted"), (700, 6_001, 1024, 0, 1025, "sorted"),
+                (70_000, 3, 8, 0, 9, "sorted")]:
+            src_ids = rng.integers(lo, hi, size=(c, we)).astype(np.int32)
+            dst_ids = {"random": lambda: rng.integers(lo, hi, size=(c, we)),
+                       "hub": lambda: np.full((c, we), 7),
+                       "alternating": lambda: np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we)),
+                       "sorted": lambda: np.sort(rng.integers(lo, hi, size=(c, we)), axis=1)}[layout]()
+            ids = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in (src_ids, dst_ids)]
+            w_t = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(dev)
+            x_t = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(dev)
+            got = edge_spmv.spmv_blocked(*ids, w_t, x_t)
+            what = f"(C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}), {layout} dst"
+            err = close(got, edge_spmv.spmv_blocked_torch(*ids, w_t, x_t), SPMV_PARITY_TOL, SPMV_PARITY_TOL,
+                        f"edge_spmv parity at {what}")
+            if lo >= wv:
+                check(not bool(got.any()), "edge_spmv: all-padding rows must add exactly 0")
+            report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], err)
+            log(f"parity edge_spmv {what}: max abs err {err:.3e}")
+
+        # ------------------------------------------- kernel parity: flash attention
+        flash_cases = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
+                       (1, 2, 256, 64, 128, None, True), (1, 1, 128, 64, None, 30.0, True),
+                       (2, 2, 384, 128, 256, 50.0, True), (1, 1, 128, 32, None, None, False),
+                       (1, 2, 512, 256, 256, 50.0, True), (1, 2, 1000, 128, None, None, True),
+                       (1, 1, 777, 256, 300, 50.0, True),
+                       (1, 2, 512, 96, None, None, True), (1, 2, 700, 96, 200, 50.0, True)]  # D = 96: padded to 128
+        for b, h, s, d, window, softcap, causal in flash_cases:
+            for dtype, rtol, atol in ((torch.float32, F32_TOL, F32_TOL), (torch.bfloat16, BF16_RTOL, BF16_ATOL)):
+                q, k, vv = (torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype) for _ in range(3))
+                kw = dict(causal=causal, window=window, softcap=softcap)
+                tc_before = fa.tc_launches
+                got = fa.flash_attention(q, k, vv, **kw)
+                check(got.dtype == dtype and got.shape == q.shape, "flash_attention: wrong output type or shape")
+                check(fa.tc_launches == tc_before + (dtype == torch.bfloat16),
+                      "flash_attention: bf16 must run the tensor-core kernel and f32 the CUDA-core kernel")
+                err = close(got, fa.flash_attention_torch(q, k, vv, **kw), rtol, atol,
+                            f"flash_attention parity at {(b, h, s, d)} {dtype} {kw}")
+                report["flash_attention"]["max_abs_err"] = max(report["flash_attention"]["max_abs_err"], err)
+                log(f"parity flash_attention (B, H, S, D) = {(b, h, s, d)} {str(dtype)[6:]} {kw}: max abs err {err:.3e}")
+
+        # ------------------------------------------ kernel parity: decode attention
+        decode_cases = [(2, 4, 512, 64, 128, None, torch.float32, None), (1, 1, 1024, 32, 256, None, torch.float32, None),
+                        (3, 8, 256, 128, 256, None, torch.float32, None),
+                        (3, 4, 512, 64, 128, None, torch.float32, [0, 200, 512]),
+                        (2, 4, 512, 128, 128, 20.0, torch.float32, None),
+                        (4, 4, 2048, 128, 512, None, torch.bfloat16, [1, 700, 1536, 2048]),
+                        (4, 4, 2048, 96, 512, None, torch.bfloat16, [1, 700, 1536, 2048])]  # D = 96: padded to 128
+        for bh, gq, s, d, block_s, softcap, kv_dtype, cache in decode_cases:
+            q = torch.randn((bh, gq, d), generator=gen, device=dev)
+            k, vv = (torch.randn((bh, s, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
+            cl = (torch.randint(1, s + 1, (bh,), generator=gen, device=dev, dtype=torch.int32) if cache is None
+                  else torch.tensor(cache, dtype=torch.int32, device=dev))
+            got = dec.decode_attention_partials(q, k, vv, cl, block_s=block_s, softcap=softcap)
+            want = dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=block_s, softcap=softcap)
+            what = f"decode_attention parity at {(bh, gq, s, d, block_s)} softcap {softcap} {kv_dtype} cache_len {cache}"
+            err = max(close(gv, wv_, DECODE_TOL, DECODE_TOL, f"{what} ({name})") for name, gv, wv_ in zip("oml", got, want))
+            err = max(err, close(dec.merge_partials(*got)[0], dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, what))
+            merged = dec.decode_attention(q, k, vv, cl, block_s=block_s, softcap=softcap)
+            err = max(err, close(merged, dec.merge_partials(*want)[0], DECODE_TOL, DECODE_TOL, f"{what} (merged)"))
+            if cache is not None and cache[0] == 0:
+                mean_v = vv[0].float().mean(0).expand(gq, d)
+                for name, out in (("partials", dec.merge_partials(*got)[0]), ("merged", merged)):
+                    close(out[0], mean_v, DECODE_TOL, DECODE_TOL, f"cache_len = 0 must decode to the mean of v ({name})")
+            report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
+            log(f"parity decode_attention (BH, Gq, S, D, block_s) = {(bh, gq, s, d, block_s)} softcap {softcap} "
+                f"{str(kv_dtype)[6:]} cache_len {cache or 'random'}: max abs err {err:.3e} (partials and merged)")
+        # The merged path at split boundaries, an empty row, Gq 1 and 8, a bf16 query.
+        sp = dec.SPLIT
+        for gq, d, kv_dtype, q_dtype in [(4, 128, torch.bfloat16, torch.bfloat16), (8, 128, torch.float32, torch.float32),
+                                         (1, 96, torch.bfloat16, torch.float32), (8, 256, torch.bfloat16, torch.bfloat16)]:
+            cache = [0, 1, sp - 1, sp, sp + 1, 3 * sp]
+            q = torch.randn((len(cache), gq, d), generator=gen, device=dev).to(q_dtype)
+            k, vv = (torch.randn((len(cache), 3 * sp, d), generator=gen, device=dev).to(kv_dtype) for _ in range(2))
+            cl = torch.tensor(cache, dtype=torch.int32, device=dev)
+            got = dec.decode_attention(q, k, vv, cl)
+            want = dec.merge_partials(*dec.decode_attention_partials_torch(q, k, vv, cl, scale=d**-0.5, block_s=512))[0]
+            what = f"decode_attention merged path at Gq {gq}, D {d}, {kv_dtype} cache, {q_dtype} q, cache_len {cache}"
+            err = close(got, want, DECODE_TOL, DECODE_TOL, what)
+            close(got[0], vv[0].float().mean(0).expand(gq, d), DECODE_TOL, DECODE_TOL,
+                  f"{what}: cache_len = 0 must decode to the mean of v")
+            report["decode_attention"]["max_abs_err"] = max(report["decode_attention"]["max_abs_err"], err)
+            log(f"parity {what}: max abs err {err:.3e}")
+        phases["parity_s"] = time.perf_counter() - t0
 
     # ------------------------------------------------- slice 1: the graph path
     rescaler = ElasticRescaler()
@@ -814,6 +1060,39 @@ def main() -> int:
     check(slice1_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": expected_launches},
           f"slice 1 launched {slice1_launches}, expected segment_rf {expected_launches} times and nothing else")
     log(f"slice 1 launches: {slice1_launches} (segment_rf = {len(packs)} packs + {len(rescales)} re-checked rescales)")
+
+    # Path 5's inputs: the slice-1 ordered list once, for every rank to load
+    # (the GEO order is not computed again per rank), and slice 1's results.
+    (ROOT / "build" / "multirank").mkdir(parents=True, exist_ok=True)
+    np.savez(ROOT / "build" / "multirank" / "ordered.npz", src=src, dst=dst)
+    multirank_want = dict(
+        packs={**{k: packs[k] for k in (16, 8)}, 17: rescales["16to17"][0], 12: rescales["8to12"][0]},
+        quality={k: oracle(k) for k in (16, 8, 17, 12)},
+        pagerank=pr17, sssp=ss17, sssp_it=it_s17, wcc=wc17, wcc_it=it_w17)
+
+    def run_multirank(tag, backend, n_procs, devs, devices, steps) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = multirank_path(tag, backend, n_procs, devs, devices, steps, src, dst, v, source, multirank_want)
+        phases[f"multirank_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 5 ({tag}): the parent launched {parent}, expected none")
+        return read
+
+    g4_gloo = ("g4_gloo_1card", "gloo", MULTIRANK_PROCS, MULTIRANK_DEVS,
+               ["cuda:0"] * (MULTIRANK_PROCS * MULTIRANK_DEVS), MULTIRANK_STEPS)
+    if args.cards > 1:
+        # The four-card call: (c) g = 4 over NCCL, one card per rank, as (a)'s
+        # 2 x 2, beside (a) itself in the same call.
+        multirank_read = {"g4_gloo_1card": run_multirank(*g4_gloo),
+                          "g4_nccl_4cards": run_multirank("g4_nccl_4cards", "nccl", MULTIRANK_PROCS,
+                                                          MULTIRANK_DEVS, [f"cuda:{i}" for i in range(4)],
+                                                          MULTIRANK_STEPS)}
+        log(json.dumps({"multirank": multirank_read, "phases": phases}))
+        log(f"card: {card}")
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                               "count": torch.cuda.device_count()}}))
+        return 0
 
     # Split of a pack's time: the host part alone (the rest is the copy to
     # the card, the row sort, the kernel and the degree count).
@@ -971,6 +1250,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ------------------------------------- path 5: the main path over several ranks
+    # (a) g = 4 over gloo, 2 processes x 2 ranks, every rank on the one card;
+    # (b) one rank over NCCL on the same card.
+    multirank_read = {
+        "g4_gloo_1card": run_multirank(*g4_gloo),
+        "g1_nccl": run_multirank("g1_nccl", "nccl", 1, 1, ["cuda:0"], MULTIRANK_STEPS_ONE),
+    }
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
     c, w = rows16.shape
@@ -984,7 +1273,12 @@ def main() -> int:
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
         other_shapes=[stream_twins.pop("segment_rf_rows"), rows_timing(rungs_rf.pop("widest"), segment_rf)],
         rungs_shapes=rungs_rf["shapes"])
-    del rows16
+    # Path 5's per-rank rows: rank 0 of 4 holds partitions 0, 4, 8 and 12 of the k = 16 pack.
+    rank0 = ops.packed_rows(packs[16].edges[0::4].contiguous(), packs[16].mask[0::4].contiguous())
+    check(torch.equal(segment_rf.segment_distinct_counts(rank0), segment_rf.segment_distinct_counts_torch(rank0)),
+          "segment_rf parity failed on path 5's rank-0 rows")
+    report["segment_rf"]["multirank_rows"] = rows_timing(rank0, segment_rf)
+    del rows16, rank0
 
     spmv_times = []
     for name, (bounds, starts, size) in spmv_calls.items():
@@ -1097,7 +1391,11 @@ def main() -> int:
     launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_}}
     by_path = {"slice1": slice1_launches, "slice2": slice2_launches, "stream": stream_launches,
                "rungs": rungs_launches}
+    for tag, read in multirank_read.items():  # path 5: each rank's own launches, counted from 0 in its process
+        by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
+        report["segment_rf"][f"multirank_{tag}_by_rank"] = read["segment_rf_launches"]
     log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
+    log(json.dumps({"multirank": multirank_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -1123,6 +1421,7 @@ def main() -> int:
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
+            **{key: r[key] for key in r if key.startswith("multirank_")},
         })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

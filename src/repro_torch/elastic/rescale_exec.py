@@ -10,15 +10,22 @@ partitioner or re-packing from the host.
 
 The JAX package compiles the copies into one jitted program and donates the
 old buffer to it. Here the copies run eagerly on the data's device, the
-result is a fresh tensor and the input stays valid: no donation.
+result is a fresh tensor and the input stays valid: no donation. Over a
+``ShardedEngineData`` of g ranks each rank builds the same sorted segment
+list from the plan alone; a segment whose source row ``partition_row(s,
+k_old, g)`` and destination row ``partition_row(d, k_new, g)`` are on one
+rank is a slice copy there, every other one a send and a receive between the
+two ranks (``launch/multihost.py exchange``: NCCL on the cards, gloo staged
+through host memory).
 
-Cost accounting (``RescaleStats``) keeps the JAX package's fields. On a world
-of one rank every migrated row stays on its device, so the ``cross_device_*``
-and ``cross_process_*`` counts are 0:
+Cost accounting (``RescaleStats``) keeps the JAX package's fields:
 
 * ``migrated_*`` — rows whose owner *partition* changes (equals
   ``ScalePlan.migrated_bytes`` by construction, asserted in tests);
-* ``on_device_edges`` — migrated rows whose partitions share a device;
+* ``cross_device_*`` — migrated rows whose partitions sit on different ranks
+  (p % g), ``on_device_edges`` the rest;
+* ``cross_process_*`` — the subset whose ranks belong to different
+  processes (hosts): what a multi-host deployment pays on the network;
 * ``local_shift_edges`` — rows that keep their owner but land at a different
   slot in the padded buffer because the chunk start moved.
 """
@@ -34,7 +41,9 @@ import torch
 from ..core import cep
 from ..graphs import engine as graph_engine
 from ..kernels import ops
+from ..launch import multihost as MH
 from ..launch import sharding as SH
+from ..launch.mesh import make_graph_group
 from ..obs import metrics as OM
 from ..obs import trace as OT
 
@@ -43,6 +52,7 @@ __all__ = [
     "ProgramCache",
     "RescaleStats",
     "ElasticRescaler",
+    "cross_process_plan_edges",
     "plan_segments",
 ]
 
@@ -134,6 +144,17 @@ class ProgramCache:
         return value
 
 
+def cross_process_plan_edges(plan: cep.ScalePlan, group) -> int:
+    """Edges of the plan's move ranges whose source and destination partitions
+    live on different *processes* of ``group`` — the Thm.-2 subset that a
+    multi-host deployment pays on the network. Pure host arithmetic over the
+    overlay (no device readback), so the network bill is known before the
+    migration runs. ``group=None`` is a world of one: 0."""
+    g = SH.graph_axis_size(group)
+    procs = SH.device_process_map(group)
+    return int(sum(hi - lo for lo, hi, s, d in plan.moves if procs[s % g] != procs[d % g]))
+
+
 def plan_segments(plan: cep.ScalePlan) -> list:
     """The plan's overlay as ordered (lo, hi, src_part, dst_part) copy
     segments — stays spelled src == dst. This is the exact instruction list of
@@ -168,17 +189,21 @@ class RescaleStats:
 
 @dataclasses.dataclass(frozen=True)
 class _Program:
-    """A cached migration: its copy segments, the precomputed k_new mask and
-    the stats that depend on the plan alone."""
+    """A cached migration for one rank: its share of the copy segments, the
+    precomputed k_new mask block and the stats that depend on the plan alone.
 
-    segments: tuple
-    row_old: tuple
-    row_new: tuple
-    start_old: tuple
-    start_new: tuple
+    Segments are ``(lo, hi, src_part, dst_part)`` in ``plan_segments`` order,
+    the same on every rank. ``local`` holds those whose source and
+    destination rows are both this rank's, as local (row, column) slices;
+    ``sends``/``recvs`` the rest that touch this rank, each ``(peer, row,
+    col_lo, col_hi, tag)`` with the tag the segment's index."""
+
+    local: tuple  # (row_old, a_old, b_old, row_new, a_new, b_new), local rows
+    sends: tuple
+    recvs: tuple
     e_max_new: int
-    k_pad_new: int
-    mask_new: torch.Tensor
+    rows_new: int  # m_new, this rank's row count at k_new
+    mask_new: torch.Tensor  # (m_new, e_max_new) f32
     stats: RescaleStats
 
 
@@ -187,11 +212,26 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-class ElasticRescaler:
-    """Executes ``cep.ScalePlan``s against a packed ``EngineData`` on its device.
+def _layout_of(data):
+    """The data's group and its row block's partition ids. An ``EngineData``
+    is the pack of a world of one on its device."""
+    if isinstance(data, graph_engine.ShardedEngineData):
+        return data.group, data.local_partitions()
+    return make_graph_group(data.edges.device), list(range(data.k))
 
-    Prepared migrations (segment list + k_new mask) are cached per
-    (num_edges, k_old, k_new, device) in a bounded LRU
+
+class ElasticRescaler:
+    """Executes ``cep.ScalePlan``s against packed engine state on its devices.
+
+    Takes an ``EngineData`` (a world of one) or a ``ShardedEngineData``
+    (partitions round-robin over the ranks of its ``GraphGroup``); every rank
+    of the group calls ``execute`` with the same plan. A segment whose source
+    and destination rows are on one rank is a slice copy there; every other
+    segment is one send from the rank holding the source row and one receive
+    into the destination rank's fresh block (``multihost.exchange``).
+
+    Prepared migrations (segment lists + k_new mask block) are cached per
+    (num_edges, k_old, k_new, group, device) in a bounded LRU
     (``program_cache_size``), so a controller oscillating between cluster
     sizes prepares each once. ``verify=True`` re-packs from scratch on the
     host and asserts bit-equality (the tests' oracle); the metrics re-check
@@ -222,30 +262,44 @@ class ElasticRescaler:
         """Apply ``plan`` to ``data``; returns ``(new_data, RescaleStats)``.
 
         ``data`` must be CEP-chunked (partition p = ordered range p, as built
-        by ``pack_ordered``). The result's edges and mask are fresh tensors on
-        ``data``'s device; ``data`` is not donated and stays valid.
+        by ``pack_ordered`` / ``pack_ordered_sharded``). The result's edges and
+        mask are fresh tensors on ``data``'s device; ``data`` is not donated
+        and stays valid. Over a group of several ranks this is a collective:
+        every rank calls it with the same plan.
 
         ``recheck=True`` recomputes mirrors / replication factor for k_new on
-        the device, through the ``segment_rf`` kernel, with no host readback
-        of the buffers. ``recheck=False`` keeps the pure O(overlay-ranges)
-        migration cost; the returned data then carries ``mirrors=-1``,
+        the devices, through the ``segment_rf`` kernel on each rank's new
+        rows and one ``all_reduce`` of the sums, with no host readback of the
+        buffers. ``recheck=False`` keeps the pure O(overlay-ranges) migration
+        cost; the returned data then carries ``mirrors=-1``,
         ``replication_factor=nan`` (engine algorithms never read them).
-        ``verify=True`` reads the input back to the host, packs it from
-        scratch at k_new there and compares byte for byte.
+        ``verify=True`` reads every rank's rows back to the host
+        (``host_read``), packs the ordered list from scratch at k_new there and
+        compares byte for byte.
         """
         n, k_old, k_new = plan.num_edges, plan.k_old, plan.k_new
         if data.k != k_old:
             raise ValueError(f"plan is for k_old={k_old} but engine data has k={data.k}")
         if data.num_edges != n:
             raise ValueError(f"plan is for |E|={n} but engine data has |E|={data.num_edges}")
+        group, parts = _layout_of(data)
         device = data.edges.device
-        # Layout check: per-row edge counts reduced on the device; k ints to host.
-        counts = (data.mask > 0).sum(dim=1)
-        sizes_old = torch.from_numpy(np.diff(cep.chunk_bounds(n, k_old))).to(device)
-        if counts.shape != sizes_old.shape or not torch.equal(counts, sizes_old):
+        # Layout check over this rank's rows (per-row edge counts reduced on
+        # the device, m ints to host), then one all_reduce MIN of the verdict
+        # so that every rank raises together and none is left waiting at the
+        # next collective.
+        counts = (data.mask > 0).sum(dim=1).cpu().numpy()
+        sizes_old = np.diff(cep.chunk_bounds(n, k_old))
+        want = np.asarray([int(sizes_old[p]) if p < k_old else 0 for p in parts], dtype=counts.dtype)
+        ok_here = counts.shape == want.shape and bool(np.array_equal(counts, want))
+        ok_all = int(MH.all_reduce(torch.tensor([int(ok_here)], device=device), group, "min")[0])
+        if not ok_all:
+            where = (
+                f"per-row edge counts {counts.tolist()} != chunk sizes {want.tolist()}" if not ok_here
+                else "another rank's rows do not hold its chunks"
+            )
             raise ValueError(
-                "engine data is not CEP-chunked (per-row edge counts "
-                f"{counts.tolist()} != chunk sizes {sizes_old.tolist()}); "
+                f"engine data is not CEP-chunked (rank {group.rank} of {group.size}: {where}); "
                 "range-copy rescaling only applies to pack_ordered layouts"
             )
         if k_new == k_old:
@@ -254,17 +308,22 @@ class ElasticRescaler:
                 k_old=k_old, k_new=k_new, num_edges=n, migrated_edges=0,
                 migrated_bytes=0, stay_edges=n, local_shift_edges=0,
                 copy_ops=0, oracle_checked=False, elapsed_s=0.0, recheck_s=0.0,
+                devices=group.size, processes=group.process_count,
             )
             return data, stats
 
-        prog = self._program(n, k_old, k_new, plan, device)
+        prog = self._program(n, k_old, k_new, plan, group, device)
         _synchronize(device)
         t0 = time.perf_counter()
         with self.tracer.span("rescale.migrate"):
-            new_edges = torch.zeros((prog.k_pad_new, prog.e_max_new, 2), dtype=data.edges.dtype, device=device)
-            for lo, hi, s, d in prog.segments:
-                src_rows = data.edges[prog.row_old[s], lo - prog.start_old[s] : hi - prog.start_old[s]]
-                new_edges[prog.row_new[d], lo - prog.start_new[d] : hi - prog.start_new[d]] = src_rows
+            new_edges = torch.zeros((prog.rows_new, prog.e_max_new, 2), dtype=data.edges.dtype, device=device)
+            for r_old, a_old, b_old, r_new, a_new, b_new in prog.local:
+                new_edges[r_new, a_new:b_new] = data.edges[r_old, a_old:b_old]
+            sent, received = MH.exchange(
+                group,
+                [(peer, data.edges[r, a:b], tag) for peer, r, a, b, tag in prog.sends],
+                [(peer, new_edges[r, a:b], tag) for peer, r, a, b, tag in prog.recvs],
+            )
             new_mask = prog.mask_new.clone()
             _synchronize(device)
         elapsed = time.perf_counter() - t0
@@ -273,13 +332,16 @@ class ElasticRescaler:
         m.counter("rescale.migrated_bytes").inc(prog.stats.migrated_bytes)
         m.counter("rescale.cross_device_bytes").inc(prog.stats.cross_device_bytes)
         m.counter("rescale.cross_process_bytes").inc(prog.stats.cross_process_bytes)
+        m.counter("rescale.sent_bytes").inc(sent)  # this rank's share of the cross-rank traffic
+        m.counter("rescale.received_bytes").inc(received)
 
         # Metrics re-check: recompute quality numbers for the new k (never
         # carried over from the old pack). A rescale does not change degrees,
         # so the touched-vertex count comes from them.
         t1 = time.perf_counter()
         if recheck:
-            total = int(ops.chunk_vertex_counts_packed(new_edges, new_mask).sum())
+            local = ops.chunk_vertex_counts_packed(new_edges, new_mask).sum()
+            total = int(MH.all_reduce(local, group, "sum"))
             present = int((data.degrees > 0).sum())
             mirrors, rf = total - present, float(total) / float(data.num_vertices)
         else:
@@ -290,13 +352,23 @@ class ElasticRescaler:
 
         oracle_checked = False
         if verify:
-            # From-scratch host pack of the ORIGINAL ordered list at k_new — a
-            # mis-routed move segment cannot fool this.
-            src_o, dst_o = graph_engine.unpack_ordered(data)
+            # From-scratch host pack of the ORIGINAL ordered list at k_new, in
+            # the sharded row order — a mis-routed move segment cannot fool
+            # this. Every rank reads every rank's rows, so all agree.
+            old_rows = [SH.partition_row(p, k_old, group.size) for p in range(k_old)]
+            old_edges = MH.host_read(data.edges, group)[old_rows]
+            old_valid = MH.host_read(data.mask, group)[old_rows] > 0
+            src_o, dst_o = old_edges[..., 0][old_valid], old_edges[..., 1][old_valid]
             want_edges, want_mask = graph_engine.host_pack(src_o, dst_o, k_new)
+            rows = [SH.partition_row(p, k_new, group.size) for p in range(k_new)]
+            got_edges, got_mask = MH.host_read(new_edges, group), MH.host_read(new_mask, group)
+            pad = np.ones(got_edges.shape[0], dtype=bool)
+            pad[rows] = False
             if not (
-                np.array_equal(want_edges, new_edges.cpu().numpy())
-                and np.array_equal(want_mask, new_mask.cpu().numpy())
+                np.array_equal(want_edges, got_edges[rows])
+                and np.array_equal(want_mask, got_mask[rows])
+                and not got_edges[pad].any()
+                and not got_mask[pad].any()
             ):
                 raise AssertionError("executed rescale does not match from-scratch pack")
             oracle_checked = True
@@ -312,23 +384,31 @@ class ElasticRescaler:
         return self.execute(data, self.plan(data, k_new), verify=verify, recheck=recheck)
 
     # -------------------------------------------------------------- interns
-    def _program(self, n: int, k_old: int, k_new: int, plan: cep.ScalePlan, device) -> _Program:
-        key = ("migrate", n, k_old, k_new, device)
+    def _program(self, n: int, k_old: int, k_new: int, plan: cep.ScalePlan, group, device) -> _Program:
+        key = ("migrate", n, k_old, k_new, group, device)
         cached = self._programs.get(key)
         if cached is not None:
             return cached
 
-        g = SH.graph_axis_size()
+        g, me = group.size, group.rank
         bo = cep.chunk_bounds(n, k_old)
         bn = cep.chunk_bounds(n, k_new)
         sizes_new = np.diff(bn)
         e_max_new = int(sizes_new.max())
-        k_pad_new = SH.padded_partition_count(k_new, g)
-        # Row of each partition in the old / new layouts: the identity on a
-        # world of one rank.
-        row_old = tuple(SH.partition_row(p, k_old, g) for p in range(k_old))
-        row_new = tuple(SH.partition_row(p, k_new, g) for p in range(k_new))
-        segments = tuple(plan_segments(plan))
+        m_new = SH.padded_partition_count(k_new, g) // g
+        segments = plan_segments(plan)
+        local, sends, recvs = [], [], []
+        for tag, (lo, hi, s, d) in enumerate(segments):
+            # Partition p sits on rank p % g at local row p // g.
+            owner, dest = SH.partition_device(s, g), SH.partition_device(d, g)
+            a_old, b_old = lo - int(bo[s]), hi - int(bo[s])
+            a_new, b_new = lo - int(bn[d]), hi - int(bn[d])
+            if owner == me and dest == me:
+                local.append((s // g, a_old, b_old, d // g, a_new, b_new))
+            elif owner == me:
+                sends.append((dest, s // g, a_old, b_old, tag))
+            elif dest == me:
+                recvs.append((owner, d // g, a_new, b_new, tag))
         local_shift = sum(
             hi - lo for lo, hi, s, d in segments if s == d and int(bo[s]) != int(bn[s])
         )
@@ -337,6 +417,7 @@ class ElasticRescaler:
             for lo, hi, s, d in plan.moves
             if SH.partition_device(s, g) != SH.partition_device(d, g)
         )
+        xproc = cross_process_plan_edges(plan, group)
         stats = RescaleStats(
             k_old=k_old,
             k_new=k_new,
@@ -353,21 +434,22 @@ class ElasticRescaler:
             cross_device_edges=int(cross),
             cross_device_bytes=int(cross) * EDGE_BYTES,
             on_device_edges=plan.migrated_edges - int(cross),
+            processes=group.process_count,
+            cross_process_edges=xproc,
+            cross_process_bytes=xproc * EDGE_BYTES,
         )
-        mask_rows = np.zeros(k_pad_new, dtype=np.int64)
-        for p in range(k_new):
-            mask_rows[row_new[p]] = sizes_new[p]
+        mask_rows = np.zeros(m_new, dtype=np.int64)
+        for d in range(me, k_new, g):  # this rank's partitions: d % g == me, at row d // g
+            mask_rows[d // g] = sizes_new[d]
         mask_new = torch.from_numpy(
             (np.arange(e_max_new)[None, :] < mask_rows[:, None]).astype(np.float32)
         ).to(device)
         prog = _Program(
-            segments=segments,
-            row_old=row_old,
-            row_new=row_new,
-            start_old=tuple(int(x) for x in bo[:-1]),
-            start_new=tuple(int(x) for x in bn[:-1]),
+            local=tuple(local),
+            sends=tuple(sends),
+            recvs=tuple(recvs),
             e_max_new=e_max_new,
-            k_pad_new=k_pad_new,
+            rows_new=m_new,
             mask_new=mask_new,
             stats=stats,
         )

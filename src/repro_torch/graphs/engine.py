@@ -9,16 +9,19 @@ to the device, where the degrees and the quality metrics (mirrors,
 replication factor) are measured — the per-chunk distinct-vertex counts
 through the CUDA ``segment_rf`` kernel (kernels/ops.py).
 
-``ShardedEngineData`` is the same pack laid out over the ``graph`` axis
-(``launch/sharding.py``): the streaming engine keeps its live pack in it. This
-package runs a world of one rank, where the two layouts are bit-identical and
-the GAS apps take either.
+``ShardedEngineData`` is the same pack laid out over the ``graph`` axis of g
+torch.distributed ranks (``launch/sharding.py``, ``launch/mesh.py``): each
+rank holds its row block on its own device, and the streaming engine keeps its
+live pack in it. A world of one is the degenerate case, bit-identical to
+``EngineData``.
 
 The GAS apps keep the JAX package's update rules, written as ``index_add_``
-and ``scatter_reduce_(…, "amin")`` on the data's device. Float sums are taken
-in another order than XLA's (CUDA scatter-add uses atomics), so PageRank
-agrees with the JAX package to a tolerance; SSSP and WCC take minima of
-integer-valued floats and agree exactly.
+and ``scatter_reduce_(…, "amin")`` on the data's device; over a sharded pack
+each rank scatters its own rows and an ``all_reduce`` (SUM for PageRank, MIN
+for SSSP and WCC) combines them, as the reference's ``psum``/``pmin``. Float
+sums are taken in another order than XLA's (CUDA scatter-add uses atomics),
+so PageRank agrees with the JAX package to a tolerance; SSSP and WCC take
+minima of integer-valued floats and agree exactly.
 """
 from __future__ import annotations
 
@@ -31,7 +34,9 @@ from ..compat import resolve_device
 from ..core import cep
 from ..core.graph import Graph
 from ..kernels import ops
+from ..launch import multihost as MH
 from ..launch import sharding as SH
+from ..launch.mesh import GraphGroup, make_graph_group
 
 __all__ = [
     "EngineData",
@@ -44,8 +49,11 @@ __all__ = [
     "ShardedEngineData",
     "shard_engine_data",
     "unshard_engine_data",
+    "pack_ordered_sharded",
     "host_pack_slots",
     "pack_slots",
+    "local_slot_partitions",
+    "pack_slots_sharded_stream",
     "pagerank",
     "sssp",
     "wcc",
@@ -200,72 +208,94 @@ def engine_data_from_arrays(
 
 
 # ------------------------------------------------------------ sharded layout
-def _check_world(g: int) -> None:
-    if g != 1:
-        raise NotImplementedError(
-            f"a graph axis of {g} ranks: the multi-rank layout is ROADMAP.md queue A2; "
-            "this package runs a world of one rank"
-        )
-
-
 @dataclasses.dataclass(frozen=True)
 class ShardedEngineData:
-    """``EngineData`` laid out over the ``graph`` axis of g ranks.
+    """``EngineData`` laid out over the ``graph`` axis of g ranks
+    (``launch/mesh.py GraphGroup``).
 
-    ``edges``/``mask`` are (k_pad, E_max, 2) / (k_pad, E_max) with
+    The global buffers are (k_pad, E_max, 2) / (k_pad, E_max) with
     k_pad = ⌈k/g⌉·g, rows in rank-major round-robin order (partition p on rank
     p % g, at row ``launch.sharding.partition_row(p, k, g)``). Rows whose
-    partition id ≥ k are padding: all-zero, fully masked. ``degrees`` is
-    replicated. The layout is written for any g; this package runs a world of
-    one rank (g = 1), where it is bit-identical to ``EngineData``, and the GAS
-    apps take it unchanged."""
+    partition id ≥ k are padding: all-zero, fully masked. Each rank holds only
+    its row block [r·m, (r+1)·m), m = k_pad/g, in ``edges``/``mask`` on its
+    device; ``degrees`` is replicated. A world of one makes this layout
+    bit-identical to ``EngineData``."""
 
-    edges: torch.Tensor  # (k_pad, E_max, 2) int32
-    mask: torch.Tensor  # (k_pad, E_max) f32
+    edges: torch.Tensor  # (m, E_max, 2) int32: this rank's rows
+    mask: torch.Tensor  # (m, E_max) f32
     degrees: torch.Tensor  # (V,) f32, replicated
     num_vertices: int
     k: int  # logical partition count (rows may exceed it)
-    devices: int  # g, the graph-axis size (the reference carries its mesh here)
+    group: GraphGroup
     mirrors: int
     replication_factor: float
     num_edges: int = 0
 
     @property
+    def devices(self) -> int:
+        return self.group.size
+
+    @property
     def k_pad(self) -> int:
-        return int(self.edges.shape[0])
+        return SH.padded_partition_count(self.k, self.devices)
 
     @property
     def rows_per_device(self) -> int:
-        return self.k_pad // self.devices
+        return int(self.edges.shape[0])
 
     def partition_device(self, p: int) -> int:
         return SH.partition_device(p, self.devices)
 
+    def local_partitions(self) -> list[int]:
+        """Partition id of each of this rank's rows, in row order (ids ≥ k
+        are padding rows)."""
+        return _block_partitions(self.k, self.group)
 
-def _partition_rows(k: int, g: int, device) -> torch.Tensor:
-    return torch.tensor([SH.partition_row(p, k, g) for p in range(k)], dtype=torch.int64, device=device)
+
+def _block_partitions(k: int, group: GraphGroup) -> list[int]:
+    g = group.size
+    lo, hi = group.row_block(SH.padded_partition_count(k, g))
+    return [SH.row_partition(r, k, g) for r in range(lo, hi)]
 
 
-def shard_engine_data(data: EngineData, g: int = 1) -> ShardedEngineData:
-    """Lay a packed ``EngineData`` out over a graph axis of ``g`` ranks, on
-    the data's device. g > 1 raises ``NotImplementedError``."""
-    _check_world(g)
-    k = data.k
-    k_pad = SH.padded_partition_count(k, g)
-    e_max = int(data.edges.shape[1])
-    dev = data.edges.device
-    rows = _partition_rows(k, g, dev)
-    edges = torch.zeros((k_pad, e_max, 2), dtype=torch.int32, device=dev)
-    mask = torch.zeros((k_pad, e_max), dtype=torch.float32, device=dev)
-    edges[rows] = data.edges
-    mask[rows] = data.mask
+def _local_rows(edges: np.ndarray, mask: np.ndarray, k: int, group: GraphGroup):
+    """This rank's row block of a partition-major host pack, in the sharded
+    layout (padding rows all-zero)."""
+    parts = _block_partitions(k, group)
+    real = [i for i, p in enumerate(parts) if p < k]
+    ids = [parts[i] for i in real]
+    e_local = np.zeros((len(parts),) + edges.shape[1:], dtype=edges.dtype)
+    m_local = np.zeros((len(parts),) + mask.shape[1:], dtype=mask.dtype)
+    e_local[real], m_local[real] = edges[ids], mask[ids]
+    return e_local, m_local
+
+
+def shard_engine_data(data: EngineData, group: GraphGroup | None = None) -> ShardedEngineData:
+    """Lay a packed ``EngineData`` (every rank holds the same one) out over
+    ``group``'s ranks: each keeps its row block, on the data's device. A
+    world of one (``group=None``) is the identity permutation: the result
+    holds the pack's own tensors, uncopied."""
+    if group is None:
+        group = make_graph_group(data.edges.device)
+    k, g = data.k, group.size
+    if g == 1:
+        edges, mask = data.edges, data.mask
+    else:
+        parts = torch.tensor(_block_partitions(k, group), dtype=torch.int64, device=data.edges.device)
+        real = parts < k
+        edges = torch.zeros((parts.numel(),) + tuple(data.edges.shape[1:]), dtype=data.edges.dtype,
+                            device=data.edges.device)
+        mask = torch.zeros((parts.numel(),) + tuple(data.mask.shape[1:]), dtype=data.mask.dtype,
+                           device=data.mask.device)
+        edges[real] = data.edges[parts[real]]
+        mask[real] = data.mask[parts[real]]
     return ShardedEngineData(
         edges=edges,
         mask=mask,
-        degrees=data.degrees.clone(),
+        degrees=data.degrees,
         num_vertices=data.num_vertices,
         k=k,
-        devices=g,
+        group=group,
         mirrors=data.mirrors,
         replication_factor=data.replication_factor,
         num_edges=data.num_edges,
@@ -273,19 +303,69 @@ def shard_engine_data(data: EngineData, g: int = 1) -> ShardedEngineData:
 
 
 def unshard_engine_data(sdata: ShardedEngineData) -> EngineData:
-    """Inverse of ``shard_engine_data``: rows un-permuted back to the
-    partition-major pack (the bit-identity oracle layout), on the same device."""
-    _check_world(sdata.devices)
-    rows = _partition_rows(sdata.k, sdata.devices, sdata.edges.device)
+    """Inverse of ``shard_engine_data``: every rank's rows gathered and
+    un-permuted back to the partition-major pack (the bit-identity oracle
+    layout), on this rank's device. A collective at g > 1 (every rank
+    calls it). The result is always a copy, at g = 1 too: callers may keep
+    it while the sharded pack is updated in place (the stream engine)."""
+    group = sdata.group
+    rows = torch.tensor([SH.partition_row(p, sdata.k, sdata.devices) for p in range(sdata.k)],
+                        dtype=torch.int64, device=sdata.edges.device)
     return EngineData(
-        edges=sdata.edges[rows],
-        mask=sdata.mask[rows],
+        edges=MH.all_gather_rows(sdata.edges, group)[rows],
+        mask=MH.all_gather_rows(sdata.mask, group)[rows],
         degrees=sdata.degrees.clone(),
         num_vertices=sdata.num_vertices,
         k=sdata.k,
         mirrors=sdata.mirrors,
         replication_factor=sdata.replication_factor,
         num_edges=sdata.num_edges,
+    )
+
+
+def pack_ordered_sharded(
+    src_ordered: np.ndarray,
+    dst_ordered: np.ndarray,
+    num_vertices: int,
+    k: int,
+    group: GraphGroup | None = None,
+    *,
+    e_max: int | None = None,
+    device=None,
+) -> ShardedEngineData:
+    """``pack_ordered``, distributed: CEP chunks land round-robin on the ranks.
+
+    Every rank packs the replicated host list and uploads only its rows. Each
+    measures its partitions' distinct-vertex counts on its device through
+    ``ops.chunk_vertex_counts_packed`` (the CUDA ``segment_rf`` kernel on a
+    card); mirrors and RF come from one ``all_reduce`` of those sums. Degrees
+    are counted on the host from the replicated list (the same f32 integer
+    counts ``pack_ordered`` measures). ``group=None`` is a world of one on
+    ``device``."""
+    if group is None:
+        group = make_graph_group(device)
+    edges, mask = host_pack(src_ordered, dst_ordered, k, e_max)
+    e_local, m_local = _local_rows(edges, mask, k, group)
+    del edges, mask
+    k_pad = SH.padded_partition_count(k, group.size)
+    edges_t = MH.put_global_local(e_local, (k_pad,) + e_local.shape[1:], group)
+    mask_t = MH.put_global_local(m_local, (k_pad,) + m_local.shape[1:], group)
+    deg = (np.bincount(src_ordered, minlength=num_vertices)
+           + np.bincount(dst_ordered, minlength=num_vertices)).astype(np.float32)
+    degrees = torch.from_numpy(deg).to(edges_t.device)
+    local = ops.chunk_vertex_counts_packed(edges_t, mask_t).sum()
+    total = int(MH.all_reduce(local, group, "sum"))
+    present = int(np.count_nonzero(deg))
+    return ShardedEngineData(
+        edges=edges_t,
+        mask=mask_t,
+        degrees=degrees,
+        num_vertices=num_vertices,
+        k=k,
+        group=group,
+        mirrors=total - present,
+        replication_factor=float(total) / float(num_vertices),
+        num_edges=int(src_ordered.shape[0]),
     )
 
 
@@ -349,12 +429,88 @@ def pack_slots(
     )
 
 
-def _endpoints(data: EngineData):
+def local_slot_partitions(k: int, group: GraphGroup | None = None) -> list[int]:
+    """Partition ids whose buffer rows this rank holds, in row order (ids ≥ k
+    are the all-masked padding rows and are omitted). The shard-streamed
+    commit materializes exactly these partitions' slots and no others."""
+    return [p for p in _block_partitions(k, group or make_graph_group("cpu")) if p < k]
+
+
+def pack_slots_sharded_stream(
+    part_fn,
+    k: int,
+    num_vertices: int,
+    group: GraphGroup | None,
+    slots_per_region: int,
+    *,
+    device=None,
+) -> ShardedEngineData:
+    """``pack_slots`` committed shard by shard: no full-graph host array.
+
+    ``part_fn(p) -> (slot_src, slot_dst, slot_valid)`` produces ONE
+    partition's ``slots_per_region`` slots; it is called only for the
+    partitions this rank holds, one at a time, into a staging buffer bounded
+    by the local row block. Degrees and the edge count are V-sized
+    accumulators merged by ``psum_host``. Unsharded, the result is
+    byte-identical to ``pack_slots`` over the concatenated slot arrays.
+    ``group=None`` is a world of one on ``device``."""
+    if group is None:
+        group = make_graph_group(device)
+    g = group.size
+    k_pad = SH.padded_partition_count(k, g)
+    spr = int(slots_per_region)
+    e_cap = spr + 1  # + scratch column, as pack_slots
+    parts = _block_partitions(k, group)
+    edges_local = np.zeros((len(parts), e_cap, 2), dtype=np.int32)
+    mask_local = np.zeros((len(parts), e_cap), dtype=np.float32)
+    deg_local = np.zeros(num_vertices, dtype=np.int64)
+    count_local = 0
+    for i, p in enumerate(parts):
+        if p >= k:
+            continue
+        slot_src, slot_dst, slot_valid = part_fn(p)
+        slot_valid = np.asarray(slot_valid, dtype=bool)
+        if slot_valid.shape[0] != spr:
+            raise ValueError(f"partition {p}: got {slot_valid.shape[0]} slots, expected {spr}")
+        edges_local[i, :spr, 0] = np.asarray(slot_src) * slot_valid
+        edges_local[i, :spr, 1] = np.asarray(slot_dst) * slot_valid
+        mask_local[i, :spr] = slot_valid.astype(np.float32)
+        deg_local += np.bincount(np.asarray(slot_src)[slot_valid], minlength=num_vertices)
+        deg_local += np.bincount(np.asarray(slot_dst)[slot_valid], minlength=num_vertices)
+        count_local += int(np.count_nonzero(slot_valid))
+    deg = MH.psum_host(deg_local, group).astype(np.float32)  # integer counts, exact in f32 below 2^24
+    total = int(MH.psum_host(np.asarray([count_local], dtype=np.int64), group)[0])
+    edges_t = MH.put_global_local(edges_local, (k_pad, e_cap, 2), group)
+    return ShardedEngineData(
+        edges=edges_t,
+        mask=MH.put_global_local(mask_local, (k_pad, e_cap), group),
+        degrees=torch.from_numpy(deg).to(edges_t.device),
+        num_vertices=num_vertices,
+        k=k,
+        group=group,
+        mirrors=-1,
+        replication_factor=float("nan"),
+        num_edges=total,
+    )
+
+
+# ------------------------------------------------------------------ GAS apps
+def _endpoints(data):
     e = data.edges.reshape(-1, 2).long()
     return e[:, 0], e[:, 1], data.mask.reshape(-1)
 
 
-def pagerank(data: EngineData, *, iterations: int = 20, damping: float = 0.85) -> torch.Tensor:
+def _combine(data, y: torch.Tensor, op: str) -> torch.Tensor:
+    """The GAS combine over the ``graph`` axis: each rank scattered its own
+    rows into ``y``; a sharded pack sums (``psum``) or takes the minimum
+    (``pmin``) over its ranks, so every rank holds the same vertex state."""
+    if isinstance(data, ShardedEngineData):
+        return MH.all_reduce(y, data.group, op)
+    return y
+
+
+def pagerank(data, *, iterations: int = 20, damping: float = 0.85) -> torch.Tensor:
+    """PageRank over an ``EngineData`` or a ``ShardedEngineData`` (every rank calls it)."""
     v = data.num_vertices
     src, dst, m = _endpoints(data)
     deg = torch.clamp(data.degrees, min=1.0)
@@ -366,15 +522,17 @@ def pagerank(data: EngineData, *, iterations: int = 20, damping: float = 0.85) -
         y = torch.zeros_like(x)
         y.index_add_(0, dst, contrib[src] * m)
         y.index_add_(0, src, contrib[dst] * m)
+        y = _combine(data, y, "sum")
         # Dangling vertices spread their mass uniformly (networkx convention).
         dm = torch.where(dangling, x, 0.0).sum()
         x = (1 - damping) / v + damping * (y + dm / v)
     return x
 
 
-def _min_propagate(data: EngineData, x0: torch.Tensor, step: float, max_iters: int):
+def _min_propagate(data, x0: torch.Tensor, step: float, max_iters: int):
     """Iterate x ← min(x, min over edges of x[neighbour] + step) until nothing
-    changes or ``max_iters``; returns (x, iterations run)."""
+    changes or ``max_iters``; returns (x, iterations run). The combined
+    candidates are the same on every rank, so every rank stops together."""
     big = 1e9
     src, dst, m = _endpoints(data)
     valid = m > 0
@@ -383,19 +541,19 @@ def _min_propagate(data: EngineData, x0: torch.Tensor, step: float, max_iters: i
         cand = torch.full_like(x, big)
         cand.scatter_reduce_(0, dst, torch.where(valid, x[src] + step, big), "amin")
         cand.scatter_reduce_(0, src, torch.where(valid, x[dst] + step, big), "amin")
-        nx = torch.minimum(x, cand)
+        nx = torch.minimum(x, _combine(data, cand, "min"))
         changed = bool((nx < x).any())
         x, it = nx, it + 1
     return x, it
 
 
-def sssp(data: EngineData, *, source: int = 0, max_iters: int = 64) -> tuple[torch.Tensor, int]:
+def sssp(data, *, source: int = 0, max_iters: int = 64) -> tuple[torch.Tensor, int]:
     d0 = torch.full((data.num_vertices,), 1e9, dtype=torch.float32, device=data.edges.device)
     d0[source] = 0.0
     return _min_propagate(data, d0, 1.0, max_iters)
 
 
-def wcc(data: EngineData, *, max_iters: int = 64) -> tuple[torch.Tensor, int]:
+def wcc(data, *, max_iters: int = 64) -> tuple[torch.Tensor, int]:
     l0 = torch.arange(data.num_vertices, dtype=torch.float32, device=data.edges.device)
     return _min_propagate(data, l0, 0.0, max_iters)
 

@@ -2,18 +2,25 @@
 
 Partition p of a k-way pack lives on rank ``p % g`` of a world of g ranks, at
 buffer row ``partition_row(p, k, g)``. A world of 1 is the degenerate case of
-the same rules (row p = partition p), which is the layout this package runs.
+the same rules (row p = partition p). The ranks are a ``launch.mesh.GraphGroup``
+(the reference's mesh); ``None`` stands for a world of one.
 """
 from __future__ import annotations
+
+import numpy as np
 
 GRAPH_AXIS = "graph"  # the axis (torch.distributed ranks) owning graph partitions
 
 
-def graph_axis_size(world_size: int = 1) -> int:
-    """Size of the ``graph`` axis: the number of ranks holding partitions."""
-    if world_size < 1:
-        raise ValueError(f"world_size must be >= 1, got {world_size}")
-    return int(world_size)
+def graph_axis_size(group=1) -> int:
+    """Size of the ``graph`` axis: the number of ranks holding partitions.
+    ``group`` is a ``GraphGroup``, a rank count, or ``None`` (a world of one)."""
+    if group is None:
+        return 1
+    g = int(getattr(group, "size", group))
+    if g < 1:
+        raise ValueError(f"world_size must be >= 1, got {g}")
+    return g
 
 
 def padded_partition_count(k: int, g: int) -> int:
@@ -46,3 +53,19 @@ def row_partition(r: int, k: int, g: int) -> int:
     partition (empty, masked)."""
     m = padded_partition_count(k, g) // g
     return (r % m) * g + r // m
+
+
+def device_process_map(group) -> np.ndarray:
+    """(g,) process index of each ``graph``-axis rank. All zeros for a world
+    of one (``group=None``) and for a single-process group, so one process is
+    the degenerate case of the same per-process accounting."""
+    if group is None:
+        return np.zeros(1, dtype=np.int64)
+    return np.asarray(group.processes, dtype=np.int64)
+
+
+def partition_process(p: int, group) -> int:
+    """Process owning partition p: the process of graph-axis rank p % g.
+    Composes the round-robin partition→rank map with the group's
+    rank→process map (multi-host runs: launch/multihost.py)."""
+    return int(device_process_map(group)[p % graph_axis_size(group)])

@@ -6,8 +6,8 @@ device traffic (``rescale.migrate_s``, ``rescale.migrated_bytes``).
 
 Every metric snapshots to float64 values — a scalar for counters/gauges, a
 fixed-length bucket vector (+ count + sum) for histograms — so snapshots of
-several processes sum. The one-collective global snapshot comes with the
-multi-rank layout.
+several processes sum: ``snapshot_global`` sums them over the ranks of a
+``GraphGroup`` in one ``all_reduce``.
 
 Histograms use fixed log-spaced bucket bounds (identical on every process,
 hence summable) plus a bounded ring of exact samples: while no sample has
@@ -22,8 +22,12 @@ from __future__ import annotations
 
 import bisect
 import collections
+import resource
+import sys
 
 import numpy as np
+
+from ..launch import multihost as MH
 
 __all__ = [
     "DEFAULT_BUCKETS",
@@ -34,6 +38,9 @@ __all__ = [
     "MetricsRegistry",
     "NullRegistry",
     "NULL",
+    "peak_rss_mb",
+    "record_process_gauge",
+    "record_peak_rss",
 ]
 
 # 1e-6 … 1e2 seconds, 4 per decade: 33 bounds → 34 bucket slots (the last is
@@ -179,6 +186,24 @@ class MetricsRegistry:
                 out[name] = float(m.value)
         return out
 
+    def snapshot_global(self, group) -> dict:
+        """The snapshot summed over every rank of ``group`` — ONE
+        ``psum_host`` collective for the whole registry (the local snapshot
+        packs into a single flat float64 vector; every rank must call this
+        at the same point with the same metric names/shapes)."""
+        local = self.snapshot()
+        parts = [np.atleast_1d(np.asarray(local[k], np.float64)) for k in sorted(local)]
+        flat = np.concatenate(parts) if parts else np.zeros(0, np.float64)
+        summed = MH.psum_host(flat, group)
+        out: dict = {}
+        off = 0
+        for k in sorted(local):
+            n = np.atleast_1d(np.asarray(local[k])).shape[0]
+            chunk = summed[off : off + n]
+            out[k] = chunk if n > 1 else float(chunk[0])
+            off += n
+        return out
+
 
 class _NullMetric:
     """Accepts every mutation, stores nothing. One instance serves every
@@ -230,5 +255,40 @@ class NullRegistry:
     def snapshot(self) -> dict:
         return {}
 
+    def snapshot_global(self, group) -> dict:
+        return {}
+
 
 NULL = NullRegistry()
+
+
+def peak_rss_mb() -> float:
+    """Peak resident-set size of THIS process in MB (ru_maxrss; kilobytes on
+    Linux, bytes on macOS)."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    scale = 1024.0 * 1024.0 if sys.platform == "darwin" else 1024.0
+    return peak / scale
+
+
+def record_process_gauge(value: float, registry, name: str, *, process_index: int, process_count: int) -> float:
+    """Publish a per-process value as a process-indexed gauge family.
+
+    Registers ``<name>.p{i}`` for EVERY process index — own index carries the
+    measured value, the others zero — so the sum-aggregated global snapshot
+    (``snapshot_global``'s one ``psum_host``) reads back each process's value
+    individually. Each rank is one OS process, so a rank passes its group
+    rank and size. Returns ``value``."""
+    v = float(value)
+    for i in range(int(process_count)):
+        registry.gauge(f"{name}.p{i}").set(v if i == int(process_index) else 0.0)
+    return v
+
+
+def record_peak_rss(registry, *, process_index: int, process_count: int) -> float:
+    """Surface this process's peak RSS as the ``process.peak_rss_mb.p{i}``
+    process-indexed gauge family (see ``record_process_gauge``). Returns the
+    measured MB."""
+    return record_process_gauge(
+        peak_rss_mb(), registry, "process.peak_rss_mb",
+        process_index=process_index, process_count=process_count,
+    )

@@ -64,6 +64,7 @@ from ..graphs import engine as graph_engine
 from ..kernels import full_reorder as FRK
 from ..kernels import span_reorder as SRK
 from ..launch import sharding as SH
+from ..launch.mesh import GraphGroup, make_graph_group
 from ..obs import metrics as OM
 from ..obs import trace as OT
 from .incremental import IncrementalOrderer
@@ -132,7 +133,9 @@ class StreamingEngine:
     across — ingests, because the slot layout is mask-driven.
 
     ``device=None`` means ``"cuda"`` and raises without a card; the CPU runs
-    only when asked for (``device="cpu"``).
+    only when asked for (``device="cpu"``). ``group`` is the graph axis; the
+    engine runs a world of one (the default), and a group of several ranks
+    raises ``NotImplementedError`` (ROADMAP.md, queue A item 2's remainder).
     """
 
     def __init__(
@@ -147,6 +150,7 @@ class StreamingEngine:
         rebuild_flight: int = 2,
         tracer=None,
         metrics_registry=None,
+        group: GraphGroup | None = None,
     ):
         if span_repair not in ("device", "host", "oracle", "differential"):
             raise ValueError(f"unknown span_repair mode {span_repair!r}")
@@ -155,7 +159,13 @@ class StreamingEngine:
         if rebuild_flight < 0:
             raise ValueError("rebuild_flight must be >= 0")
         self.device = resolve_device(device)
-        self.g = SH.graph_axis_size()  # a world of one rank
+        self.group = make_graph_group(self.device) if group is None else group
+        if self.group.size != 1:
+            raise NotImplementedError(
+                f"a StreamingEngine over {self.group.size} ranks: its sharded scatter and compaction are "
+                "ROADMAP.md queue A item 2's remainder; this engine runs a world of one rank"
+            )
+        self.g = self.group.size
         self.orderer = orderer
         # Above this many slot ops, a full pack re-upload replaces the scatter.
         # Only the host-mode partial rung produces span-sized op batches.
@@ -232,7 +242,7 @@ class StreamingEngine:
         )
 
     def _upload(self) -> graph_engine.ShardedEngineData:
-        return graph_engine.shard_engine_data(self.oracle_pack(), self.g)
+        return graph_engine.shard_engine_data(self.oracle_pack(), self.group)
 
     def _operand(self, arr: np.ndarray) -> torch.Tensor:
         """A host-built operand (scatter indices, gather maps) on the device."""
@@ -473,7 +483,7 @@ class StreamingEngine:
             degrees=self.data.degrees,  # same graph, degrees unchanged
             num_vertices=self.num_vertices,
             k=int(k_new),
-            devices=g,
+            group=self.group,
             mirrors=-1,
             replication_factor=float("nan"),
             num_edges=o.num_edges,

@@ -1,13 +1,17 @@
 """The port on the GPU: each CUDA kernel (segment_rf, edge_spmv,
 flash_attention, decode_attention) against its plain version, the paths on
 the card against the same paths on the CPU, and the streaming engine's device
-programs against their host mirrors and the ``pack_slots`` oracle.
+programs against their host mirrors and the ``pack_slots`` oracle, and the
+multi-rank layout on the one card (ranks over gloo, one rank over NCCL).
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,8 @@ from repro_torch.graphs import engine as E
 from repro_torch.kernels import decode_attention as dec
 from repro_torch.kernels import edge_spmv, ops, ref, segment_rf
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import multihost as MH
+from repro_torch.launch import sharding as SH
 
 pytestmark = pytest.mark.cuda
 
@@ -547,3 +553,53 @@ def test_short_stream_on_cuda_stays_bit_identical(cuda, span_repair, full_rebuil
     assert eng.rung_counts["partial"] >= 3
     pr = E.pagerank(eng.data)
     torch.testing.assert_close(pr, E.pagerank(eng.oracle_pack()), rtol=1e-4, atol=1e-7)
+
+
+# ------------------------------------------------------- multi-rank layout
+MULTIHOST_WORKER = pathlib.Path(__file__).resolve().parent / "test_torch_multihost.py"
+MULTIHOST_RESCALES = [("chain12", 12), ("chain8", 8), ("pair5_9", 9), ("pair12_20", 20), ("pair3_7", 7),
+                      ("pair20_16", 16), ("pair7_8", 8)]  # what the worker keeps, at its k
+
+
+@pytest.mark.parametrize("backend,n_procs,devs_per_proc", [("gloo", 1, 2), ("nccl", 1, 1)],
+                         ids=["gloo-2-ranks", "nccl-1-rank"])
+def test_multirank_layout_on_the_card(cuda, ordered, tmp_path, backend, n_procs, devs_per_proc):
+    """The multi-rank worker of ``tests/test_torch_multihost.py`` with every
+    rank on the one card: two ranks over gloo (NCCL refuses two ranks of one
+    communicator on one device), or one rank over NCCL. Its sharded packs and
+    verified rescales are held byte-equal to the host pack, its apps against
+    the port on the CPU, and every rank must have launched ``segment_rf``."""
+    g, src, dst = ordered
+    src, dst, v = src.astype(np.int32), dst.astype(np.int32), g.num_vertices
+    source = int(np.argmax(np.bincount(np.concatenate([src, dst]), minlength=v)))
+    np.savez(tmp_path / "inputs.npz", src=src, dst=dst, num_vertices=v, source=source)
+    rng = np.random.default_rng(0)
+    np.savez(tmp_path / "slots.npz", src=rng.integers(0, v, 240), dst=rng.integers(0, v, 240),
+             valid=rng.random(240) < 0.7)
+    world = n_procs * devs_per_proc
+    res = MH.spawn_local_cluster(
+        n_procs, devs_per_proc, [str(MULTIHOST_WORKER), "worker", str(tmp_path)], backend=backend,
+        devices=["cuda:0"] * world, timeout=300.0, env_extra={"PYTHONPATH": str(MULTIHOST_WORKER.parents[1] / "src")},
+    )
+    assert res.ok, res.format_logs()
+    ranks = [(dict(np.load(tmp_path / f"rank{r}.npz")), json.loads((tmp_path / f"rank{r}.json").read_text()))
+             for r in range(world)]
+    for name, k in MULTIHOST_RESCALES:
+        edges = np.concatenate([a[f"{name}_edges"] for a, _ in ranks])
+        mask = np.concatenate([a[f"{name}_mask"] for a, _ in ranks])
+        rows = [SH.partition_row(p, k, world) for p in range(k)]
+        want_edges, want_mask = E.host_pack(src, dst, k)
+        assert edges[rows].tobytes() == want_edges.tobytes() and mask[rows].tobytes() == want_mask.tobytes(), name
+        assert int(np.count_nonzero(mask)) == src.shape[0], name
+    for k in (5, 8):
+        d = E.pack_ordered(src, dst, v, k, device="cpu")
+        pr = E.pagerank(d, iterations=20).numpy()
+        (ss, ss_it), (wc, wc_it) = E.sssp(d, source=source), E.wcc(d)
+        for arrays, meta in ranks:
+            np.testing.assert_allclose(arrays[f"pagerank{k}"], pr, rtol=1e-4, atol=1e-7)
+            assert np.array_equal(arrays[f"sssp{k}"], ss.numpy()) and meta[f"sssp{k}_it"] == ss_it
+            assert np.array_equal(arrays[f"wcc{k}"], wc.numpy()) and meta[f"wcc{k}_it"] == wc_it
+    for _, meta in ranks:
+        assert meta["group"][:3] == [world, meta["rank"], backend]
+        assert meta["segment_rf_launches"] > 0
+        assert meta["chain_stats"][0]["oracle_checked"]

@@ -38,7 +38,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
         "repro_torch.kernels.span_reorder", "repro_torch.kernels.full_reorder", "repro_torch.stream",
         "repro_torch.stream.updates", "repro_torch.stream.incremental", "repro_torch.stream.workload",
-        "repro_torch.stream.ingest",
+        "repro_torch.stream.ingest", "repro_torch.launch.mesh", "repro_torch.launch.multihost",
+        "repro_torch.obs.metrics",
     } <= set(result["modules"])
 
 

@@ -40,6 +40,8 @@ from repro_torch.graphs import engine as E
 from repro_torch.kernels import full_reorder as FRK
 from repro_torch.kernels import segment_rf
 from repro_torch.kernels import span_reorder as SRK
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.mesh import GraphGroup
 from repro_torch.stream import (
     EdgeUpdateBatch,
     IncrementalOrderer,
@@ -327,7 +329,7 @@ def test_pack_slots_byte_equal_reference(ordered):
 def test_shard_unshard_round_trip_at_one_rank_and_more_ranks_raise(ordered):
     g, src, dst = ordered
     data = E.pack_ordered(src, dst, g.num_vertices, 6, device="cpu")
-    s = E.shard_engine_data(data, 1)
+    s = E.shard_engine_data(data)
     assert (s.devices, s.k_pad, s.rows_per_device, s.partition_device(5)) == (1, 6, 6, 0)
     back = E.unshard_engine_data(s)
     for name in ("edges", "mask", "degrees"):
@@ -335,10 +337,19 @@ def test_shard_unshard_round_trip_at_one_rank_and_more_ranks_raise(ordered):
     assert (back.k, back.mirrors, back.num_edges) == (data.k, data.mirrors, data.num_edges)
     # The GAS apps take the sharded layout of one rank unchanged.
     assert torch.equal(E.pagerank(s), E.pagerank(data))
-    with pytest.raises(NotImplementedError, match="A2"):
-        E.shard_engine_data(data, 2)
-    with pytest.raises(NotImplementedError, match="A2"):
-        E.unshard_engine_data(E.ShardedEngineData(**{**vars(s), "devices": 2}))
+    # Two ranks: sharding needs no collective, and each rank keeps its row
+    # block of the round-robin layout (partition p on rank p % 2) ...
+    blocks = [E.shard_engine_data(data, GraphGroup(size=2, rank=r, device="cpu", backend="gloo", processes=(0, 0)))
+              for r in (0, 1)]
+    assert [b.local_partitions() for b in blocks] == [[0, 2, 4], [1, 3, 5]]
+    assert [(b.devices, b.k_pad, b.rows_per_device) for b in blocks] == [(2, 6, 3)] * 2
+    whole = torch.cat([b.edges for b in blocks])
+    assert torch.equal(whole[[SH.partition_row(p, 6, 2) for p in range(6)]], data.edges)
+    # ... while the streaming engine, still a world of one, refuses more ranks.
+    o, _ = _orderers(ordered)
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        StreamingEngine(o, device="cpu", group=GraphGroup(size=2, rank=0, device="cpu", backend="gloo",
+                                                          processes=(0, 0)))
 
 
 def test_program_cache_counters_equal_reference():
