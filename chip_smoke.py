@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
     python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
-    python3 chip_smoke.py --cards 4       # on four cards: slice 1 and path 5 (a), (c) only
+    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c) and path 6 (c) only
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -64,10 +64,11 @@ Phases, in order; any failure raises and the script exits nonzero:
 7. path 3, the streaming engine at full width, with every launch count set
    to 0 just before it: the slice-1 graph and GEO order in an
    ``IncrementalOrderer`` of 16 regions, a ``StreamingEngine`` on the card
-   with device span repair, 9 batches of 1,024 ``SyntheticStream`` updates
+   with device span repair, 3 batches of 1,024 ``SyntheticStream`` updates
    with a monitor after each (span repairs forced by ``partial_drift`` 1.0,
-   the full rung held off), rescales 16→20 after batch 4 and 20→12 after
-   batch 8 through the compact gather, the pack checked byte-equal to the
+   the full rung held off), a rescale 16→20 after batch 2 through the
+   compact gather (cut from 9 batches and two rescales: path 6 (a) scales in
+   at full width), the pack checked byte-equal to the
    host ``pack_slots`` oracle after the first batch, each span repair, each
    rescale and the last batch, and PageRank on the live pack held against
    PageRank on the oracle pack; per batch the host apply and device scatter
@@ -99,7 +100,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    its time (the first also loads the ops' kernels in that process).
    ``--cards 4`` runs slice 1 and then only (a) and (c): g = 4 over NCCL, one
    card per rank;
-10. each kernel's time (CUDA events) beside its bound, the plain version's
+10. path 6, the streaming engine over the same 4 gloo ranks on the one card
+   (``--stream-rank-worker``, started by ``launch_local_cluster``), each rank
+   an orderer replica and a ``StreamingEngine`` over the group, its pack
+   checked bit-identical to ``pack_slots`` after every event: (a) the slice-1
+   graph at full width over 16 regions, device span repairs of 2 regions (the
+   span crosses ranks, gathered to every rank), the full rung held off; a
+   batch of 1,024 updates, a rescale 16→12 (the slots that change rank sent
+   rank to rank), ``from_restored`` on the ranks' orderers (its pack equal to
+   the live one on every rank) and one more batch; (b)
+   path 4's RMAT-14 graph and rung settings, ``differential`` span and full
+   rungs, one rebuild committed and one aborted by a rescale 8→10, every
+   ``segment_rf`` launch of every rank tapped and held exactly against the
+   plain version, 2 a selection. Each rank prints its time and bytes for
+   each event (host apply and scatter; span gather, program and mirror;
+   rescale re-layout, exchange and compact; the restore commit) and its peak
+   RSS; the parent holds the ranks' ladders, logs and rescale counts equal
+   and the bytes sent and received to the cross-rank bytes, and launches
+   nothing. ``--cards 4`` runs (c): (a) and (b) over NCCL, a card a rank;
+11. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes. A bound counts the bytes the
    function must move from this run's inputs (for ``edge_spmv``: its three
@@ -112,7 +131,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    the rate it reaches.
 
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
-stream paths' readings, a ``{"multirank": ...}`` line of path 5's, then the card line, one ``{"kernels": [...]}`` JSON line
+stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
+``{"streamrank": ...}`` line of path 6's, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
 prints no result.
@@ -157,11 +177,13 @@ DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
 FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
 # Path 3, the stream at full width: the slice-1 graph over 16 regions (span
 # repairs forced by partial_drift 1.0, the full rung held off by full_drift 99),
-# batches of 1,024 updates, rescales 16→20 after batch 4 and 20→12 after batch 8.
-# 9 batches, cut from 12: each costs 13–22 s of host time at RMAT-20 (apply,
-# span mirror, two oracle checks), and 12 took the smoke to 800 s on an H100.
-STREAM_REGIONS, STREAM_BATCH, STREAM_BATCHES = 16, 1024, 9
-STREAM_RESCALES = {4: 20, 8: 12}
+# batches of 1,024 updates, a rescale 16→20 after batch 2. 3 batches and one
+# rescale, cut from 9 batches and rescales 16→20, 20→12 to make room for path
+# 6, whose (a) scales in at full width over four ranks: a batch costs 13–22 s
+# of host time at RMAT-20 (apply, span mirror, two oracle checks), a rescale
+# about 88 s of host re-layout. 4 batches took the smoke past 900 s.
+STREAM_REGIONS, STREAM_BATCH, STREAM_BATCHES = 16, 1024, 3
+STREAM_RESCALES = {2: 20}
 # Path 4, both rungs with selection on the card, at a reduced size: RMAT scale
 # 14. The objective range is k in [4, 32]: at [4, 128] the greedy's int32
 # priority bound is 2.78e9 on this graph and the engine would apply the host
@@ -176,6 +198,23 @@ MULTIRANK_STEPS = dict(packs=[16, 8], rescales=[["16to17", "k16", 17], ["8to12",
                        apps_on="16to17")
 MULTIRANK_STEPS_ONE = dict(packs=[16], rescales=[["16to17", "k16", 17]], apps_on="16to17")
 MULTIRANK_GROUP_TIMEOUT_S, MULTIRANK_TIMEOUT_S = 300.0, 900.0
+# Path 6, the streaming engine over the same 4 ranks. Steps: "batch" is an
+# ingest and a monitor, "force" the same with the full rung forced, an int a
+# rescale, "restore" from_restored on the ranks' orderers. (a) the slice-1
+# graph at full width, 16 regions, a span of 2 regions (so it crosses ranks),
+# the full rung held off: a batch, 16→12, the restore and one more batch (cut
+# from 3 batches before the restore: a batch costs 20–27 s a rank there, four
+# ranks sharing the host, and 3 took the smoke past 900 s). (b) path 4's
+# graph and rung settings, both rungs in differential mode: one rebuild
+# committed and one aborted by a rescale 8→10.
+STREAMRANK_A = dict(regions=16, batch=STREAM_BATCH, seed=0, span_repair="device", full_rebuild="host", flight=0,
+                    config=dict(partial_drift=1.0, full_drift=99.0, span_regions=2),
+                    steps=["batch", 12, "restore", "batch"])
+STREAMRANK_B = dict(regions=RUNGS_REGIONS, batch=RUNGS_BATCH, seed=3, span_repair="differential",
+                    full_rebuild="differential", flight=1,
+                    config=dict(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=RUNGS_K_MAX),
+                    steps=["batch", "force", "batch", "force", RUNGS_REGIONS + 2, "batch", "batch"])
+STREAMRANK_TIMEOUT_S = 900.0
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -323,8 +362,10 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
     eng = StreamingEngine(orderer, device=dev, span_repair="device", tracer=tracer)
     phases["stream_upload_s"] = time.perf_counter() - t0
     edges_b, mask_b = (t.numel() * t.element_size() for t in (eng.data.edges, eng.data.mask))
-    log(f"stream: {STREAM_BATCHES} batches of {STREAM_BATCH} updates (cut from 12 for the run's time: the "
-        f"host's apply, span mirror and oracle checks take 13-22 s a batch at RMAT-20; the graph is not cut)")
+    log(f"stream: {STREAM_BATCHES} batches of {STREAM_BATCH} updates and one rescale, 16->20 after batch 2 (cut "
+        f"from 9 batches and rescales 16->20, 20->12 for the run's time: a batch's host apply, span mirror and "
+        f"oracle checks take 13-22 s at RMAT-20, a rescale's host re-layout about 88 s; path 6 (a) scales in at "
+        f"full width over four ranks, and 4 batches took the smoke past 900 s; the graph is not cut)")
     log(f"stream: {orderer.num_edges} edges in {orderer.capacity} slots over {orderer.regions} regions, "
         f"edges {edges_b} B and mask {mask_b} B on {dev}; orderer {phases['stream_orderer_s']:.3f} s, "
         f"pack_slots + upload {phases['stream_upload_s']:.3f} s")
@@ -394,6 +435,17 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
                 edges=orderer.num_edges, slots=orderer.capacity, span=(*orderer.span_arrays(r0, r1), v))
 
 
+def rungs_graph():
+    """Path 4's graph (RMAT scale 14) and its GEO order over the objective's
+    k range: ``(graph, ordered src, ordered dst)``."""
+    from repro_torch.core import ordering
+    from repro_torch.core.graph import rmat_graph
+
+    g = rmat_graph(scale=RUNGS_SCALE, edge_factor=16, seed=0)
+    order = ordering.geo_order(g, k_min=4, k_max=RUNGS_K_MAX)
+    return g, g.src[order].astype(np.int64), g.dst[order].astype(np.int64)
+
+
 def rungs_path(dev, phases: dict, segment_rf) -> dict:
     """Path 4: both rungs with their selection on ``dev``, at RMAT scale 14.
     Engine A repairs spans and rebuilds in ``differential`` mode (both
@@ -404,8 +456,6 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     kept and, once the launches are read, held exactly against the plain
     version on those rows. Returns readings, with ``segment_rf``'s launches,
     selections and the tapped launches' row shapes."""
-    from repro_torch.core import ordering
-    from repro_torch.core.graph import rmat_graph
     from repro_torch.kernels import span_reorder as SRK
     from repro_torch.obs.trace import Tracer
     from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
@@ -422,10 +472,8 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     SRK.segment_distinct_counts = tap
 
     t0 = time.perf_counter()
-    g = rmat_graph(scale=RUNGS_SCALE, edge_factor=16, seed=0)
-    order = ordering.geo_order(g, k_min=4, k_max=RUNGS_K_MAX)
+    g, src, dst = rungs_graph()
     phases["rungs_graph_s"] = time.perf_counter() - t0
-    src, dst = g.src[order].astype(np.int64), g.dst[order].astype(np.int64)
     log(f"rungs: RMAT scale {RUNGS_SCALE}, |V|={g.num_vertices} |E|={g.num_edges}, {RUNGS_REGIONS} regions, "
         f"objective k in [4, {RUNGS_K_MAX}] (cut from the stream path's RMAT-20: the greedy runs |V_selected| "
         f"sequential steps and 'differential' needs host geo_order candidates)")
@@ -506,7 +554,8 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     widest = max((rows for rows, _ in tapped), key=lambda r: r.numel())
     return dict(a=a_read, rebuilds=log_a + log_b, checks=len(events), selections=selections, launches=launches,
                 segment_rf=dict(shapes=shapes, max_abs_err=max_err, widest=widest),
-                slots=(o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy(), g.num_vertices))
+                slots=(o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy(), g.num_vertices),
+                graph=(g, src, dst))
 
 
 def rows_timing(rows, segment_rf) -> dict:
@@ -788,13 +837,237 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
     return out
 
 
+def own_rss_mb() -> tuple:
+    """``(field, MB)``: this process's peak resident set since it started its
+    program (``VmHWM`` of ``/proc/self/status``) or, where the kernel does not
+    report a peak there, its resident set now (``VmRSS``), for the caller to
+    sample. ``ru_maxrss`` would not do in a rank: Linux carries a process's
+    peak across ``fork`` and ``exec``, so a rank would report its launcher's
+    peak whenever that is the larger."""
+    fields = dict(line.split(":", 1) for line in pathlib.Path("/proc/self/status").read_text().splitlines()
+                  if ":" in line)
+    field = "VmHWM" if "VmHWM" in fields else "VmRSS"
+    return field, int(fields[field].split()[0]) / 1024.0
+
+
+def streamrank_worker(run_dir: pathlib.Path) -> int:
+    """One rank of path 6 (``--stream-rank-worker``, started by
+    ``streamrank_path`` through ``launch_local_cluster``): an orderer replica
+    and a ``StreamingEngine`` over the group, driven through the run's
+    ``config.json`` steps ("batch": ingest + monitor; "force": the same with
+    the full rung forced; an int: a rescale; "restore": ``from_restored`` on
+    the rank's orderer, its pack compared with the live engine's, which it
+    then replaces), a bit-identity check after every event. Every
+    ``segment_distinct_counts`` call is tapped and held exactly against the
+    plain version afterwards. Prints each event's times and bytes; writes
+    ``rank{r}.npz`` (its final rows; rank 0 also the narrowest and the widest
+    rows it counted) and ``rank{r}.json`` (readings)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import types
+
+    import torch.distributed as dist
+
+    from repro_torch.kernels import segment_rf
+    from repro_torch.kernels import span_reorder as SRK
+    from repro_torch.launch import multihost as MH
+    from repro_torch.obs import metrics as OM
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    cfg = json.loads((run_dir / "config.json").read_text())
+    group = MH.initialize_from_env(timeout_s=cfg["timeout_s"])
+    r, dev, g = group.rank, group.torch_device, group.size
+    inputs = np.load(cfg["inputs"])
+    v = cfg["num_vertices"]
+    kernel, tapped = SRK.segment_distinct_counts, []
+
+    def tap(rows):
+        counts = kernel(rows)
+        tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    SRK.segment_distinct_counts = tap  # both rungs' objectives look it up at each call
+    tracer, reg = Tracer(), OM.MetricsRegistry()
+    meta = dict(rank=r, device=str(dev), backend=group.backend, events=[])
+    byte_names = ("scatter.upload", "span.gather", "rebuild.gather", "rescale.sent", "rescale.received")
+
+    def moved() -> dict:
+        return {name: reg.counter(f"stream.{name}_bytes").value for name in byte_names}
+
+    t0 = time.perf_counter()
+    o = IncrementalOrderer(inputs["src"].astype(np.int64), inputs["dst"].astype(np.int64), v, regions=cfg["regions"],
+                           config=StreamConfig(**cfg["config"]))
+    meta["orderer_s"] = time.perf_counter() - t0
+    rss_samples = [own_rss_mb()[1]]
+    engine_kw = dict(group=group, span_repair=cfg["span_repair"], full_rebuild=cfg["full_rebuild"],
+                     rebuild_flight=cfg["flight"], tracer=tracer, metrics_registry=reg)
+    t0 = time.perf_counter()
+    eng = StreamingEngine(o, **engine_kw)
+    meta["commit_s"] = time.perf_counter() - t0
+    stream = SyntheticStream(types.SimpleNamespace(src=inputs["base_src"], dst=inputs["base_dst"], num_vertices=v),
+                             batch_size=cfg["batch"], seed=cfg["seed"])
+    eng.verify_bit_identity()
+    selections, batch = 0, 0
+    for step in cfg["steps"]:
+        tracer.clear()
+        before = moved()
+        if isinstance(step, int):
+            st = eng.rescale(step)
+            ev = dict(kind="rescale", k_old=st.k_old, k_new=st.k_new, ms=st.elapsed_s * 1e3,
+                      moved_edges=st.moved_edges, cep_plan_edges=st.cep_plan_edges,
+                      cross_device_edges=st.cross_device_edges, cross_device_bytes=st.cross_device_bytes,
+                      cross_process_edges=st.cross_process_edges)
+        elif step == "restore":
+            t0 = time.perf_counter()
+            restored = StreamingEngine.from_restored(o, **engine_kw)
+            torch.cuda.synchronize(dev)
+            ev = dict(kind="restore", ms=(time.perf_counter() - t0) * 1e3,
+                      uploaded=sum(t.numel() * t.element_size() for t in (restored.data.edges, restored.data.mask,
+                                                                          restored.data.degrees)),
+                      equal={n: bool(torch.equal(getattr(restored.data, n), getattr(eng.data, n)))
+                             for n in ("edges", "mask", "degrees")})
+            eng = restored  # the live engine's buffers go with it
+        else:
+            batch += 1
+            st = eng.ingest(stream.batch())
+            if step == "force":
+                o.drift = lambda: 200.0  # over full_drift: the full rung fires
+            rung = eng.monitor()
+            if step == "force":
+                del o.drift
+            ev = dict(kind="batch", batch=batch, inserted=st.inserted, deleted=st.deleted, scatter_ops=st.scatter_ops,
+                      rung=rung, repair=eng.last_repair, state=eng.rebuild_state)
+            selections += rung == "partial" and eng.last_repair == "differential"
+        ms = {name: t * 1e3 for name, t in span_sums(tracer).items()}
+        ev.update(ms_by_span=ms, bytes={k: x - before[k] for k, x in moved().items() if x != before[k]})
+        if ev["kind"] == "rescale":
+            ev.update(sent=ev["bytes"].get("rescale.sent", 0), received=ev["bytes"].get("rescale.received", 0))
+        t0 = time.perf_counter()
+        eng.verify_bit_identity()
+        ev["verify_s"] = time.perf_counter() - t0
+        rss_samples.append(own_rss_mb()[1])
+        meta["events"].append(ev)
+        print(f"rank {r} {ev['kind']}: " + ", ".join(f"{k} {x:.3f} ms" for k, x in sorted(ms.items()))
+              + f"; bytes {ev['bytes']}; " + ", ".join(f"{k} {x}" for k, x in ev.items()
+                                                      if k not in ("ms_by_span", "bytes", "kind"))
+              + "; bit-identical", flush=True)
+    meta["log"] = [{k: x for k, x in rec.items() if not k.endswith("_s")} for rec in eng.drain_rebuild_events()]
+    meta["selections"] = int(selections) + sum(rec["mode"] == "differential" for rec in meta["log"])
+    meta["k"], meta["rung_counts"] = eng.k, eng.rung_counts
+    meta["rss_field"], meta["peak_rss_mb"] = own_rss_mb()
+    meta["peak_rss_mb"] = max(meta["peak_rss_mb"], *rss_samples)
+    SRK.segment_distinct_counts = kernel
+    meta["segment_rf_launches"] = segment_rf.launches
+    meta["segment_rf_tapped"] = [
+        dict(shape=list(rows.shape), exact=bool(torch.equal(counts, segment_rf.segment_distinct_counts_torch(rows))))
+        for rows, counts in tapped]
+    arrays = dict(edges=eng.data.edges.cpu().numpy(), mask=eng.data.mask.cpu().numpy())
+    if r == 0 and tapped:
+        by_width = sorted((rows for rows, _ in tapped), key=lambda t: t.shape[1])
+        arrays.update(rows_narrowest=by_width[0].cpu().numpy(), rows_widest=by_width[-1].cpu().numpy())
+    dist.destroy_process_group()
+    np.savez(run_dir / f"rank{r}.npz", **arrays)
+    (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
+    print(f"rank {r}: orderer {meta['orderer_s']:.3f} s, first commit {meta['commit_s']:.3f} s, peak RSS "
+          f"{meta['peak_rss_mb']:.1f} MB ({meta['rss_field']}, read after the orderer's build and after each "
+          f"event), segment_rf launched {meta['segment_rf_launches']} times for "
+          f"{meta['selections']} selections", flush=True)
+    return 0
+
+
+def streamrank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, devices: list, steps: dict,
+                    inputs: pathlib.Path, v: int) -> dict:
+    """Path 6: the streaming engine over g = n_procs · devs_per_proc ranks
+    started by the port's ``launch_local_cluster``, each on its entry of
+    ``devices`` over ``backend``, through the events of ``steps``. Every rank
+    checks its pack bit-identical to its orderer's ``pack_slots`` after every
+    event; the parent holds the ranks' ladders, rebuild logs and rescale
+    counts equal, the bytes sent and received over the ranks equal to the
+    cross-rank bytes, a restored pack equal to the live one on every rank,
+    and every rank's ``segment_rf`` launches at twice its selections, each
+    exact against the plain version. Returns readings."""
+    from repro_torch.launch import multihost as MH
+
+    g = n_procs * devs_per_proc
+    run_dir = ROOT / "build" / "streamrank" / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    (run_dir / "config.json").write_text(json.dumps(dict(steps, inputs=str(inputs), num_vertices=v,
+                                                         timeout_s=MULTIRANK_GROUP_TIMEOUT_S)))
+    t0 = time.perf_counter()
+    res = MH.spawn_local_cluster(n_procs, devs_per_proc,
+                                 [str(ROOT / "chip_smoke.py"), "--stream-rank-worker", str(run_dir)],
+                                 backend=backend, devices=devices, timeout=STREAMRANK_TIMEOUT_S,
+                                 env_extra={"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"})
+    wall = time.perf_counter() - t0
+    for p in res.procs:
+        for line in p.stdout.splitlines():
+            log(f"path 6 ({tag}) {line}")
+    check(res.ok, f"path 6 ({tag}): a rank failed\n{res.format_logs()}")
+    ranks = [(dict(np.load(run_dir / f"rank{r}.npz")), json.loads((run_dir / f"rank{r}.json").read_text()))
+             for r in range(g)]
+    first = ranks[0][1]
+    for i, (_, meta) in enumerate(ranks):
+        decisions = [(e["kind"], e.get("rung"), e.get("repair"), e.get("state"), e.get("k_new"),
+                      e.get("moved_edges"), e.get("cross_device_edges"), e.get("cross_process_edges"))
+                     for e in meta["events"]]
+        check(decisions == [(e["kind"], e.get("rung"), e.get("repair"), e.get("state"), e.get("k_new"),
+                             e.get("moved_edges"), e.get("cross_device_edges"), e.get("cross_process_edges"))
+                            for e in first["events"]] and meta["log"] == first["log"] and meta["k"] == first["k"],
+              f"path 6 ({tag}): rank {i}'s ladder, rescales or rebuild log differ from rank 0's")
+        launches, tapped = meta["segment_rf_launches"], meta["segment_rf_tapped"]
+        check(launches == 2 * meta["selections"] == len(tapped) and all(t["exact"] for t in tapped),
+              f"path 6 ({tag}) rank {i}: segment_rf launched {launches} times ({len(tapped)} tapped) for "
+              f"{meta['selections']} selections, exact {[t['exact'] for t in tapped]}")
+        for e in meta["events"]:
+            if e["kind"] == "restore":
+                check(all(e["equal"].values()), f"path 6 ({tag}) rank {i}: the restored pack differs: {e['equal']}")
+    for j, e in enumerate(first["events"]):
+        if e["kind"] == "rescale":
+            sent = sum(m["events"][j]["sent"] for _, m in ranks)
+            received = sum(m["events"][j]["received"] for _, m in ranks)
+            check(sent == received == e["cross_device_bytes"] > 0,
+                  f"path 6 ({tag}): rescale {e['k_old']}->{e['k_new']} sent {sent} B and received {received} B, "
+                  f"{e['cross_device_bytes']} B cross ranks")
+    out = dict(ranks=g, processes=n_procs, backend=backend, devices=devices, wall_s=wall, events=[],
+               orderer_s_by_rank=[m["orderer_s"] for _, m in ranks], commit_s_by_rank=[m["commit_s"] for _, m in ranks],
+               peak_rss_mb_by_rank=[m["peak_rss_mb"] for _, m in ranks], rss_field=first["rss_field"], log=first["log"],
+               segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
+               selections=[m["selections"] for _, m in ranks],
+               segment_rf_shapes=sorted({tuple(t["shape"]) for _, m in ranks for t in m["segment_rf_tapped"]}))
+    for j, e in enumerate(first["events"]):
+        by_rank = [m["events"][j] for _, m in ranks]
+        spans = sorted({k for x in by_rank for k in x["ms_by_span"]})
+        out["events"].append(dict(
+            {k: x for k, x in e.items() if k not in ("ms_by_span", "bytes", "verify_s", "sent", "received", "ms",
+                                                      "uploaded", "equal")},
+            ms_by_rank={k: [x["ms_by_span"].get(k, 0.0) for x in by_rank] for k in spans},
+            bytes_by_rank={k: [x["bytes"].get(k, 0) for x in by_rank] for k in sorted({k for x in by_rank
+                                                                                      for k in x["bytes"]})},
+            verify_s_by_rank=[x["verify_s"] for x in by_rank],
+            **({"ms_by_rank_total": [x["ms"] for x in by_rank]} if "ms" in e else {}),
+            **({"sent_by_rank": [x["sent"] for x in by_rank], "received_by_rank": [x["received"] for x in by_rank]}
+               if e["kind"] == "rescale" else {}),
+            **({"uploaded_by_rank": [x["uploaded"] for x in by_rank]} if e["kind"] == "restore" else {})))
+    if "rows_narrowest" in ranks[0][0]:
+        out["rows"] = {name: ranks[0][0][f"rows_{name}"] for name in ("narrowest", "widest")}
+    log(f"path 6 ({tag}): {g} ranks ({n_procs} processes x {devs_per_proc}) over {backend} on {sorted(set(devices))}, "
+        f"{wall:.3f} s in all; {len(first['events'])} events, every one bit-identical on every rank; orderers "
+        f"{[round(x, 3) for x in out['orderer_s_by_rank']]} s, peak RSS {[round(x, 1) for x in out['peak_rss_mb_by_rank']]} "
+        f"MB by rank ({first['rss_field']}); segment_rf launches by rank {out['segment_rf_launches']} for {out['selections']} selections, "
+        f"each exact")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
     ap.add_argument("--edge-factor", type=int, default=16, help="RMAT edges sampled per vertex")
     ap.add_argument("--cards", type=int, default=1,
-                    help="4: only slice 1 and path 5 (a) and (c), (c) being g = 4 ranks over NCCL, one card each")
+                    help="4: only slice 1, path 5 (a) and (c) and path 6 (c), (c) being g = 4 ranks over NCCL, "
+                         "one card each")
     ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
+    ap.add_argument("--stream-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 6
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -802,6 +1075,8 @@ def main() -> int:
         return 1
     if args.rank_worker is not None:
         return multirank_worker(args.rank_worker)
+    if args.stream_rank_worker is not None:
+        return streamrank_worker(args.stream_rank_worker)
     check(args.cards in (1, 4) and torch.cuda.device_count() >= args.cards,
           f"--cards {args.cards}: 1 or 4 cards, and {torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1064,7 +1339,8 @@ def main() -> int:
     # Path 5's inputs: the slice-1 ordered list once, for every rank to load
     # (the GEO order is not computed again per rank), and slice 1's results.
     (ROOT / "build" / "multirank").mkdir(parents=True, exist_ok=True)
-    np.savez(ROOT / "build" / "multirank" / "ordered.npz", src=src, dst=dst)
+    ordered_npz = ROOT / "build" / "multirank" / "ordered.npz"
+    np.savez(ordered_npz, src=src, dst=dst, base_src=g.src, base_dst=g.dst)  # path 6's stream draws from the base
     multirank_want = dict(
         packs={**{k: packs[k] for k in (16, 8)}, 17: rescales["16to17"][0], 12: rescales["8to12"][0]},
         quality={k: oracle(k) for k in (16, 8, 17, 12)},
@@ -1079,6 +1355,29 @@ def main() -> int:
         check(parent == dict.fromkeys(KERNELS, 0), f"path 5 ({tag}): the parent launched {parent}, expected none")
         return read
 
+    def run_streamrank(tag, backend, devices, steps, inputs, num_vertices) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = streamrank_path(tag, backend, MULTIRANK_PROCS, MULTIRANK_DEVS, devices, steps, inputs, num_vertices)
+        phases[f"streamrank_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 6 ({tag}): the parent launched {parent}, expected none")
+        return read
+
+    def streamrank_inputs(rungs_g) -> pathlib.Path:
+        """Path 6 (b)'s inputs: path 4's graph and its GEO order."""
+        g14, src14, dst14 = rungs_g
+        path = ROOT / "build" / "streamrank" / "rmat14.npz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, src=src14, dst=dst14, base_src=g14.src, base_dst=g14.dst)
+        return path
+
+    def check_streamrank(read: dict) -> None:
+        a, b = read["a"], read["b"]
+        check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
+        check([(r["committed"], r["aborted"]) for r in b["log"]] == [(True, False), (False, True)],
+              f"path 6 (b): rebuild log {b['log']}")
+
     g4_gloo = ("g4_gloo_1card", "gloo", MULTIRANK_PROCS, MULTIRANK_DEVS,
                ["cuda:0"] * (MULTIRANK_PROCS * MULTIRANK_DEVS), MULTIRANK_STEPS)
     if args.cards > 1:
@@ -1088,7 +1387,16 @@ def main() -> int:
                           "g4_nccl_4cards": run_multirank("g4_nccl_4cards", "nccl", MULTIRANK_PROCS,
                                                           MULTIRANK_DEVS, [f"cuda:{i}" for i in range(4)],
                                                           MULTIRANK_STEPS)}
-        log(json.dumps({"multirank": multirank_read, "phases": phases}))
+        # Path 6 (c): (a) and (b) over NCCL, one card a rank.
+        cards = [f"cuda:{i}" for i in range(4)]
+        g14 = rungs_graph()
+        streamrank_read = {"a": run_streamrank("a_g4_nccl_4cards", "nccl", cards, STREAMRANK_A, ordered_npz, v),
+                           "b": run_streamrank("b_g4_nccl_4cards", "nccl", cards, STREAMRANK_B,
+                                               streamrank_inputs(g14), g14[0].num_vertices)}
+        check_streamrank(streamrank_read)
+        for read in streamrank_read.values():
+            read.pop("rows", None)
+        log(json.dumps({"multirank": multirank_read, "streamrank": streamrank_read, "phases": phases}))
         log(f"card: {card}")
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                "count": torch.cuda.device_count()}}))
@@ -1260,6 +1568,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # --------------------------------- path 6: the streaming engine over several ranks
+    # (a) and (b) over g = 4 gloo ranks, 2 processes x 2, every rank on the one card.
+    g14 = rungs_read.pop("graph")
+    streamrank_read = {
+        "a": run_streamrank("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_A, ordered_npz, v),
+        "b": run_streamrank("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_B, streamrank_inputs(g14),
+                            g14[0].num_vertices),
+    }
+    del g14
+    check_streamrank(streamrank_read)
+    streamrank_rows = streamrank_read["b"].pop("rows")
+    streamrank_read["a"].pop("rows", None)
+
     # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
     c, w = rows16.shape
@@ -1279,6 +1600,18 @@ def main() -> int:
           "segment_rf parity failed on path 5's rank-0 rows")
     report["segment_rf"]["multirank_rows"] = rows_timing(rank0, segment_rf)
     del rows16, rank0
+    # Path 6 (b)'s rows on rank 0: the narrowest (a gathered span's sorted
+    # keys) and the widest (the full snapshot's) it counted.
+    report["segment_rf"]["streamrank_rows"] = {}
+    for name, rows_np in streamrank_rows.items():
+        rows = torch.from_numpy(rows_np).to(dev)
+        check(torch.equal(segment_rf.segment_distinct_counts(rows), segment_rf.segment_distinct_counts_torch(rows)),
+              f"segment_rf parity failed on path 6 (b)'s {name} rows")
+        report["segment_rf"]["streamrank_rows"][name] = rows_timing(rows, segment_rf)
+        t = report["segment_rf"]["streamrank_rows"][name]
+        log(f"segment_rf at path 6 (b)'s {name} rows {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms")
+        del rows
 
     spmv_times = []
     for name, (bounds, starts, size) in spmv_calls.items():
@@ -1394,8 +1727,12 @@ def main() -> int:
     for tag, read in multirank_read.items():  # path 5: each rank's own launches, counted from 0 in its process
         by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
         report["segment_rf"][f"multirank_{tag}_by_rank"] = read["segment_rf_launches"]
+    for tag, read in streamrank_read.items():  # path 6: the same
+        by_path[f"streamrank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
+        report["segment_rf"][f"streamrank_{tag}_by_rank"] = read["segment_rf_launches"]
     log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
     log(json.dumps({"multirank": multirank_read}))
+    log(json.dumps({"streamrank": streamrank_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -1421,7 +1758,7 @@ def main() -> int:
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
-            **{key: r[key] for key in r if key.startswith("multirank_")},
+            **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_"))},
         })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -12,8 +12,8 @@ through the CUDA ``segment_rf`` kernel (kernels/ops.py).
 ``ShardedEngineData`` is the same pack laid out over the ``graph`` axis of g
 torch.distributed ranks (``launch/sharding.py``, ``launch/mesh.py``): each
 rank holds its row block on its own device, and the streaming engine keeps its
-live pack in it. A world of one is the degenerate case, bit-identical to
-``EngineData``.
+live pack in it (``pack_slots_sharded`` / ``pack_slots_sharded_stream``). A
+world of one is the degenerate case, bit-identical to ``EngineData``.
 
 The GAS apps keep the JAX package's update rules, written as ``index_add_``
 and ``scatter_reduce_(…, "amin")`` on the data's device; over a sharded pack
@@ -52,6 +52,7 @@ __all__ = [
     "pack_ordered_sharded",
     "host_pack_slots",
     "pack_slots",
+    "pack_slots_sharded",
     "local_slot_partitions",
     "pack_slots_sharded_stream",
     "pagerank",
@@ -423,6 +424,41 @@ def pack_slots(
         degrees=torch.from_numpy(deg).to(dev),
         num_vertices=num_vertices,
         k=k,
+        mirrors=-1,
+        replication_factor=float("nan"),
+        num_edges=int(np.count_nonzero(slot_valid)),
+    )
+
+
+def pack_slots_sharded(
+    slot_src: np.ndarray,
+    slot_dst: np.ndarray,
+    slot_valid: np.ndarray,
+    k: int,
+    num_vertices: int,
+    group: GraphGroup | None = None,
+    *,
+    device=None,
+) -> ShardedEngineData:
+    """``pack_slots`` laid out over ``group``'s ranks: every rank packs the
+    replicated host slot arrays and uploads only its row block
+    (``put_global_local``); the degrees are replicated. No collective, so a
+    rank can commit without its peers. Unsharded, the result is byte-identical
+    to ``pack_slots``. ``group=None`` is a world of one on ``device``."""
+    if group is None:
+        group = make_graph_group(device)
+    edges, mask, deg = host_pack_slots(slot_src, slot_dst, slot_valid, k, num_vertices)
+    e_local, m_local = _local_rows(edges, mask, k, group)
+    del edges, mask
+    k_pad = SH.padded_partition_count(k, group.size)
+    edges_t = MH.put_global_local(e_local, (k_pad,) + e_local.shape[1:], group)
+    return ShardedEngineData(
+        edges=edges_t,
+        mask=MH.put_global_local(m_local, (k_pad,) + m_local.shape[1:], group),
+        degrees=torch.from_numpy(deg).to(edges_t.device),
+        num_vertices=num_vertices,
+        k=k,
+        group=group,
         mirrors=-1,
         replication_factor=float("nan"),
         num_edges=int(np.count_nonzero(slot_valid)),

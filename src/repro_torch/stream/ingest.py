@@ -42,10 +42,34 @@ The engine updates its buffers in place: there is no ``donate`` option. A wait
 is on the engine's own stream (``_wait``), never on the whole device, so a
 rebuild in flight on the side stream does not hold up ingest.
 
+Over a ``GraphGroup`` of g ranks (``launch/mesh.py``) every rank runs one
+replica of the host orderer. The replicas are deterministic, so every rank
+makes the same ladder and rescale decisions with no communication; each rank
+holds its row block of the pack (partition p on rank p % g, at local row
+p // g) and every rank holds the degrees. Per family:
+
+* **scatter** and **splice**: a rank keeps the slot ops of its own regions;
+  every rank adds every degree delta. No collective.
+* **compact**: from the replicated gather map each rank builds the gather
+  operands of its new block only. A slot whose old region lies on another
+  rank is sent by that rank: one contiguous ``(n, 2)`` int32 message for each
+  ordered pair of ranks, in one order every rank derives from the same map
+  (``multihost.exchange``).
+* **span_repair** and **full_reorder**: the span's rows (the whole pack, for
+  the full rung) are gathered to every rank by one ``all_gather_rows`` of a
+  fixed block a rank; every rank runs the same program on the same rows and
+  keeps its own rows of the result. The full rung gathers on the ingest
+  stream and runs its program on the side stream over that copy: no
+  collective runs on the side stream.
+
+A world of one is the degenerate case of the same code: its gathers and
+exchanges return their input.
+
 Bit-identity contract (DESIGN.md §9): after any sequence of ingests,
 rescales, span repairs and rebuild commits, ``unshard_engine_data(engine.data)``
 equals the host-side ``pack_slots`` oracle byte for byte
-(``verify_bit_identity``).
+(``verify_bit_identity``, a collective whose verdict is reduced over the
+ranks before any rank raises).
 """
 from __future__ import annotations
 
@@ -63,6 +87,7 @@ from ..elastic.rescale_exec import EDGE_BYTES, ProgramCache
 from ..graphs import engine as graph_engine
 from ..kernels import full_reorder as FRK
 from ..kernels import span_reorder as SRK
+from ..launch import multihost as MH
 from ..launch import sharding as SH
 from ..launch.mesh import GraphGroup, make_graph_group
 from ..obs import metrics as OM
@@ -91,12 +116,6 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
-
-
-def _rows_of_regions(regions: np.ndarray, k: int, g: int) -> np.ndarray:
-    """Vectorized launch.sharding.partition_row."""
-    m = SH.padded_partition_count(k, g) // g
-    return (regions % g) * m + regions // g
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,14 +147,18 @@ class StreamingEngine:
     """Keeps a device-resident engine pack in lock-step with an
     ``IncrementalOrderer`` under streaming updates and rescales.
 
-    ``engine.data`` is always a live ``ShardedEngineData`` of one rank: the
-    GAS algorithms (pagerank / sssp / wcc) run on it unchanged between — and
-    across — ingests, because the slot layout is mask-driven.
+    ``engine.data`` is always a live ``ShardedEngineData`` holding this rank's
+    row block: the GAS algorithms (pagerank / sssp / wcc) run on it unchanged
+    between — and across — ingests, because the slot layout is mask-driven.
 
     ``device=None`` means ``"cuda"`` and raises without a card; the CPU runs
-    only when asked for (``device="cpu"``). ``group`` is the graph axis; the
-    engine runs a world of one (the default), and a group of several ranks
-    raises ``NotImplementedError`` (ROADMAP.md, queue A item 2's remainder).
+    only when asked for (``device="cpu"``). ``group`` is the graph axis, a
+    world of one on ``device`` by default; with a group the engine runs on the
+    group's device, and every rank of the group drives its own engine with
+    the same calls. ``commit`` says how the first pack is committed:
+    ``"pack"`` packs the host slot arrays and uploads this rank's rows (no
+    collective); ``"stream"`` streams them region by region through
+    ``pack_slots_sharded_stream`` (``from_restored``).
     """
 
     def __init__(
@@ -151,6 +174,7 @@ class StreamingEngine:
         tracer=None,
         metrics_registry=None,
         group: GraphGroup | None = None,
+        commit: str = "pack",
     ):
         if span_repair not in ("device", "host", "oracle", "differential"):
             raise ValueError(f"unknown span_repair mode {span_repair!r}")
@@ -158,13 +182,16 @@ class StreamingEngine:
             raise ValueError(f"unknown full_rebuild mode {full_rebuild!r}")
         if rebuild_flight < 0:
             raise ValueError("rebuild_flight must be >= 0")
-        self.device = resolve_device(device)
-        self.group = make_graph_group(self.device) if group is None else group
-        if self.group.size != 1:
-            raise NotImplementedError(
-                f"a StreamingEngine over {self.group.size} ranks: its sharded scatter and compaction are "
-                "ROADMAP.md queue A item 2's remainder; this engine runs a world of one rank"
-            )
+        if commit not in ("pack", "stream"):
+            raise ValueError(f"unknown commit mode {commit!r}")
+        if group is None:
+            self.device = resolve_device(device)
+            self.group = make_graph_group(self.device)
+        else:
+            self.group = group
+            self.device = group.torch_device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device} is not the group's device {self.device}")
         self.g = self.group.size
         self.orderer = orderer
         # Above this many slot ops, a full pack re-upload replaces the scatter.
@@ -216,9 +243,23 @@ class StreamingEngine:
         self._m_resyncs = m.counter("stream.resyncs")
         self._m_edges = m.gauge("stream.num_edges")
         self._m_in_flight = m.gauge("stream.rebuilds_in_flight")
-        self.data = self._upload()
+        # Bytes this rank moves: scatter operands up to its device, rows it
+        # receives in the span and snapshot gathers, rescale traffic.
+        self._m_bytes = {name: m.counter(f"stream.{name}_bytes") for name in (
+            "scatter.upload", "span.gather", "rebuild.gather", "rescale.sent", "rescale.received")}
+        self.data = self._upload() if commit == "pack" else self._stream_upload()
         orderer.needs_resync = False
         self._warm_programs()
+
+    @classmethod
+    def from_restored(cls, orderer: IncrementalOrderer, device=None, *, group: GraphGroup | None = None,
+                      **kwargs) -> "StreamingEngine":
+        """An engine around a restored orderer, its first pack committed by
+        ``pack_slots_sharded_stream`` (``commit="stream"``): region p's slot
+        range feeds the commit one region at a time, and each rank stages
+        only the rows it holds. Ingest then goes on as on an engine that
+        never stopped: its pack equals the ``"pack"`` commit byte for byte."""
+        return cls(orderer, device, group=group, commit="stream", **kwargs)
 
     # ------------------------------------------------------------- plumbing
     @property
@@ -242,15 +283,63 @@ class StreamingEngine:
         )
 
     def _upload(self) -> graph_engine.ShardedEngineData:
-        return graph_engine.shard_engine_data(self.oracle_pack(), self.group)
+        """Pack the host slot arrays and upload this rank's rows (no collective)."""
+        o = self.orderer
+        return graph_engine.pack_slots_sharded(
+            o.slot_src, o.slot_dst, o.slot_valid, o.regions, o.num_vertices, self.group
+        )
+
+    def _stream_upload(self) -> graph_engine.ShardedEngineData:
+        """The shard-streamed commit (``from_restored``): region p's slot
+        range is its partition, so ``part_fn`` is a slice."""
+        o = self.orderer
+        spr = o.slots_per_region
+
+        def part_fn(p: int):
+            lo, hi = p * spr, (p + 1) * spr
+            return o.slot_src[lo:hi], o.slot_dst[lo:hi], o.slot_valid[lo:hi]
+
+        with self.tracer.span("ingest.stream_commit"):
+            return graph_engine.pack_slots_sharded_stream(part_fn, o.regions, o.num_vertices, self.group, spr)
 
     def _operand(self, arr: np.ndarray) -> torch.Tensor:
         """A host-built operand (scatter indices, gather maps) on the device."""
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    def _rows(self, parts) -> torch.Tensor:
-        o = self.orderer
-        return self._operand(np.asarray([SH.partition_row(p, o.regions, self.g) for p in parts], dtype=np.int64))
+    def _own(self, parts) -> list:
+        """The partitions among ``parts`` whose rows this rank holds."""
+        return [p for p in parts if p % self.g == self.group.rank]
+
+    def _local_ops(self, ops) -> list:
+        """The slot ops of this rank's regions."""
+        spr = self.orderer.slots_per_region
+        return [op for op in ops if (op.slot // spr) % self.g == self.group.rank]
+
+    def _gather_partitions(self, parts, counter: str):
+        """The rows of ``parts`` (ascending) from every rank, in ``parts``
+        order, on this rank's device: ``(len(parts), e_cap, 2)`` edges and
+        ``(len(parts), e_cap)`` mask. Each rank packs its own rows among
+        ``parts`` (the mask's bits as a third int32 channel) into a block of
+        ⌈len(parts)/g⌉ rows, zero-padded, and one ``all_gather_rows`` brings
+        every block to every rank; a rank with no rows there still sends its
+        block. A collective at g > 1."""
+        g = self.g
+        per = -(-len(parts) // g)
+        own = self._own(parts)
+        e_cap = int(self.data.edges.shape[1])
+        local = self._operand(np.asarray([p // g for p in own], dtype=np.int64))
+        block = torch.zeros((per, e_cap, 3), dtype=torch.int32, device=self.device)
+        block[: len(own), :, :2] = self.data.edges[local]
+        block[: len(own), :, 2] = self.data.mask[local].view(torch.int32)
+        whole = MH.all_gather_rows(block, self.group)  # (g·per, e_cap, 3), rank-major
+        # Rank q's block holds its partitions among ``parts`` in order.
+        slot_of, seen = [], [0] * g
+        for p in parts:
+            slot_of.append((p % g) * per + seen[p % g])
+            seen[p % g] += 1
+        rows = whole[self._operand(np.asarray(slot_of, dtype=np.int64))]
+        self._m_bytes[counter].inc(whole.numel() * whole.element_size())
+        return rows[..., :2], rows[..., 2].contiguous().view(torch.float32)
 
     def _wait(self) -> None:
         """Wait for the engine's own stream, not the whole device: a rebuild
@@ -318,14 +407,23 @@ class StreamingEngine:
 
     def verify_bit_identity(self) -> bool:
         """Raise unless the device pack, unsharded and read back, equals the
-        host ``pack_slots`` oracle byte for byte."""
+        host ``pack_slots`` oracle byte for byte and this rank's padding rows
+        are zero. A collective at g > 1 (the unshard gathers every rank's
+        rows); the verdict is reduced over the ranks (``all_reduce`` MIN)
+        before any rank raises, so every rank raises together."""
         got = graph_engine.unshard_engine_data(self.data)
         o = self.orderer
         want = graph_engine.host_pack_slots(o.slot_src, o.slot_dst, o.slot_valid, o.regions, o.num_vertices)
-        if not all(
+        pad = self._operand(np.asarray([i for i, p in enumerate(self.data.local_partitions()) if p >= o.regions],
+                                       dtype=np.int64))
+        ok_here = all(
             np.array_equal(t.cpu().numpy(), w) for t, w in zip((got.edges, got.mask, got.degrees), want)
-        ):
-            raise AssertionError("streaming pack diverged from the host slot oracle")
+        ) and not bool(self.data.edges[pad].any()) and not bool(self.data.mask[pad].any())
+        ok_all = int(MH.all_reduce(torch.tensor([int(ok_here)]), self.group, "min")[0])
+        if not ok_all:
+            where = "seen on this rank" if not ok_here else "seen on another rank"
+            raise AssertionError(f"streaming pack diverged from the host slot oracle (rank {self.group.rank} of "
+                                 f"{self.g}: {where})")
         return True
 
     # --------------------------------------------------------------- ingest
@@ -374,16 +472,17 @@ class StreamingEngine:
         self._m_scatter_ops.inc(len(ops))
 
     def _slot_op_operands(self, ops, cap: int, e_cap: int):
-        """(rows, cols, vals, mvals) of ``ops`` padded to ``cap``: padding
-        targets the scratch column of row 0 with zeros."""
-        o = self.orderer
+        """(rows, cols, vals, mvals) of this rank's ``ops`` padded to ``cap``,
+        rows local to its block (region p at row p // g): padding targets the
+        scratch column of local row 0 with zeros."""
+        spr = self.orderer.slots_per_region
         rows = np.zeros(cap, dtype=np.int64)
         cols = np.full(cap, e_cap - 1, dtype=np.int64)
         vals = np.zeros((cap, 2), dtype=np.int32)
         mvals = np.zeros(cap, dtype=np.float32)
         for i, op in enumerate(ops):
-            rows[i] = SH.partition_row(op.slot // o.slots_per_region, o.regions, self.g)
-            cols[i] = op.slot % o.slots_per_region
+            rows[i] = op.slot // spr // self.g
+            cols[i] = op.slot % spr
             if op.valid:
                 vals[i] = (op.u, op.v)
                 mvals[i] = 1.0
@@ -393,15 +492,18 @@ class StreamingEngine:
         o = self.orderer
         k_pad = self.data.k_pad
         e_cap = int(self.data.edges.shape[1])  # slots_per_region + scratch
+        ops = self._local_ops(ops)
         cap = _next_pow2(max(len(ops), (len(deg) + 1) // 2, _MIN_OP_CAPACITY))
         self._seen_scatter_caps.add(cap)
+        # Every rank adds every degree delta: the degrees are replicated.
         verts = np.zeros(2 * cap, dtype=np.int64)
         dvals = np.zeros(2 * cap, dtype=np.float32)
         for i, (v, d) in enumerate(sorted(deg.items())):
             verts[i] = v
             dvals[i] = float(d)
-        program = self._scatter_program(k_pad, e_cap, cap)
-        program(self.data, *self._slot_op_operands(ops, cap, e_cap), self._operand(verts), self._operand(dvals))
+        operands = self._slot_op_operands(ops, cap, e_cap) + [self._operand(verts), self._operand(dvals)]
+        self._m_bytes["scatter.upload"].inc(sum(t.numel() * t.element_size() for t in operands))
+        self._scatter_program(k_pad, e_cap, cap)(self.data, *operands)
         self.data = dataclasses.replace(self.data, num_edges=o.num_edges)
 
     def _scatter_key(self, k_pad: int, e_cap: int, cap: int):
@@ -430,7 +532,9 @@ class StreamingEngine:
     def rescale(self, k_new: int, *, verify: bool = False) -> StreamRescaleStats:
         """Re-slice the live stream to ``k_new`` partitions on the device: the
         orderer re-chunks the current incremental order (CEP at k_new) and the
-        gather map executes as one compact program."""
+        gather map executes as one compact gather into this rank's new block.
+        Slots whose old region lies on another rank arrive from it through
+        ``multihost.exchange`` (a collective at g > 1: every rank calls it)."""
         t0 = time.perf_counter()
         o = self.orderer
         # Flush what the host applied since the last device sync: the gather
@@ -440,49 +544,82 @@ class StreamingEngine:
         # geometry (and its shadow buffers' shape) is void — abort it.
         if self._flight is not None:
             self._abort_rebuild("rescale")
-        g = self.g
+        g, me = self.g, self.group.rank
         k_old, spr_old = o.regions, o.slots_per_region
+        k_new = int(k_new)
         old_edges = self.data.edges
         with self.tracer.span("rescale.relayout"):
-            o.relayout(int(k_new))
+            o.relayout(k_new)
             gm = o.drain_gather_map()
         spr_new = o.slots_per_region
-        e_cap_old = int(old_edges.shape[1])
         e_cap_new = spr_new + 1
-        k_pad_new = SH.padded_partition_count(int(k_new), g)
+        m_new = SH.padded_partition_count(k_new, g) // g
 
         new_slots = np.flatnonzero(gm >= 0)
         old_slots = gm[new_slots]
         new_regions = new_slots // spr_new
         old_regions = old_slots // spr_old
-        src_row = np.zeros((k_pad_new, e_cap_new), dtype=np.int32)
-        src_col = np.zeros((k_pad_new, e_cap_new), dtype=np.int32)
-        validf = np.zeros((k_pad_new, e_cap_new), dtype=np.float32)
-        dst_rows = _rows_of_regions(new_regions, int(k_new), g)
-        dst_cols = new_slots % spr_new
-        src_row[dst_rows, dst_cols] = _rows_of_regions(old_regions, k_old, g)
-        src_col[dst_rows, dst_cols] = old_slots % spr_old
-        validf[dst_rows, dst_cols] = 1.0
-
-        moved = int(np.count_nonzero(new_regions != old_regions))
-        cross = int(
-            np.count_nonzero((new_regions != old_regions) & (new_regions % g != old_regions % g))
-        )
-        # One process holds every rank of this package's world, so no moved
-        # edge crosses a process boundary.
-        xproc = 0
-        program = self._compact_program((int(old_edges.shape[0]), e_cap_old, k_pad_new, e_cap_new, self.device))
+        dst_rank, src_rank = new_regions % g, old_regions % g
+        moved_slots = new_regions != old_regions
+        moved = int(np.count_nonzero(moved_slots))
+        cross = int(np.count_nonzero(moved_slots & (dst_rank != src_rank)))
+        procs = SH.device_process_map(self.group)
+        xproc = int(np.count_nonzero(moved_slots & (procs[dst_rank] != procs[src_rank])))
+        # This rank's new block: every slot it holds at k_new is valid; the
+        # ones whose old region is its own too are gathered from its old block.
+        mine = dst_rank == me
+        rows_new, cols_new = new_regions[mine] // g, new_slots[mine] % spr_new
+        src_here = src_rank[mine] == me
+        src_row = np.zeros((m_new, e_cap_new), dtype=np.int32)
+        src_col = np.zeros((m_new, e_cap_new), dtype=np.int32)
+        validf = np.zeros((m_new, e_cap_new), dtype=np.float32)
+        validf[rows_new, cols_new] = 1.0
+        src_row[rows_new[src_here], cols_new[src_here]] = old_regions[mine][src_here] // g
+        src_col[rows_new[src_here], cols_new[src_here]] = old_slots[mine][src_here] % spr_old
+        # One message per ordered pair of ranks, its slots in new-slot order,
+        # tagged source · g + destination: sender and receiver derive the
+        # same list from the same map. Flat (row · e_cap + col) positions.
+        e_cap_old = int(old_edges.shape[1])
+        from_me = src_rank == me
+        out_flat = (old_regions[from_me] // g) * e_cap_old + old_slots[from_me] % spr_old
+        out_peer = dst_rank[from_me]
+        in_flat = rows_new * e_cap_new + cols_new
+        in_peer = src_rank[mine]
+        sends, recvs = [], []
+        for peer in range(g):
+            if peer == me:
+                continue
+            out_sel = out_peer == peer
+            if out_sel.any():
+                sends.append((peer, self._operand(out_flat[out_sel]), me * g + peer))
+            in_sel = in_peer == peer
+            if in_sel.any():
+                recvs.append((peer, self._operand(in_flat[in_sel]), peer * g + me))
+        # Every replica must have taken the same decision; this reduction
+        # also runs a collective on the group before its first exchange.
+        self._check_replicas(k_old, k_new, o.num_edges, moved)
+        program = self._compact_program((int(old_edges.shape[0]), e_cap_old, m_new, e_cap_new, self.device))
+        with self.tracer.span("rescale.exchange"):  # the cross-rank slots, waited for
+            arrived = [torch.empty((idx.numel(), 2), dtype=torch.int32, device=self.device) for _, idx, _ in recvs]
+            sent, received = MH.exchange(
+                self.group,
+                [(peer, old_edges.view(-1, 2)[idx], tag) for peer, idx, tag in sends],
+                [(peer, out, tag) for (peer, _, tag), out in zip(recvs, arrived)],
+            )
+            self._wait()
         with self.tracer.span("rescale.compact"):  # upload of the gather map + the gather, waited for
             edges, mask = program(
                 old_edges, self._operand(src_row), self._operand(src_col), self._operand(validf)
             )
+            for (_, idx, _), rows in zip(recvs, arrived):
+                edges.view(-1, 2)[idx] = rows
             self._wait()
         self.data = graph_engine.ShardedEngineData(
             edges=edges,
             mask=mask,
             degrees=self.data.degrees,  # same graph, degrees unchanged
             num_vertices=self.num_vertices,
-            k=int(k_new),
+            k=k_new,
             group=self.group,
             mirrors=-1,
             replication_factor=float("nan"),
@@ -498,14 +635,18 @@ class StreamingEngine:
         m.histogram("stream.rescale.s").observe(elapsed)
         m.counter("stream.rescale.cross_device_bytes").inc(cross * EDGE_BYTES)
         m.counter("stream.rescale.cross_process_bytes").inc(xproc * EDGE_BYTES)
+        # This rank's share of the cross-rank traffic: summed over the ranks,
+        # each equals cross_device_bytes.
+        self._m_bytes["rescale.sent"].inc(sent)
+        self._m_bytes["rescale.received"].inc(received)
         if verify:
             self.verify_bit_identity()
         return StreamRescaleStats(
             k_old=k_old,
-            k_new=int(k_new),
+            k_new=k_new,
             num_edges=o.num_edges,
             moved_edges=moved,
-            cep_plan_edges=cep.migrated_edges_exact(o.num_edges, k_old, int(k_new)),
+            cep_plan_edges=cep.migrated_edges_exact(o.num_edges, k_old, k_new),
             cross_device_edges=cross,
             cross_device_bytes=cross * EDGE_BYTES,
             elapsed_s=elapsed,
@@ -513,13 +654,22 @@ class StreamingEngine:
             cross_process_bytes=xproc * EDGE_BYTES,
         )
 
+    def _check_replicas(self, *values: int) -> None:
+        """Raise on every rank unless every rank passed the same ``values``
+        (one ``all_reduce`` MIN of the values and their negations)."""
+        t = torch.tensor([*values, *(-v for v in values)], dtype=torch.int64)
+        if not torch.equal(MH.all_reduce(t, self.group, "min"), t):
+            raise RuntimeError(f"the ranks' orderer replicas diverged: rank {self.group.rank} has {values}")
+
     def _compact_program(self, key):
         cached = self._programs.get(("compact",) + key)
         if cached is not None:
             return cached
 
         def compact(edges_old, src_row, src_col, validf):
-            gathered = edges_old[src_row.long(), src_col.long()]  # (k_pad_new, e_cap_new, 2)
+            # Slots that arrive from other ranks gather a placeholder here and
+            # are overwritten by the exchange's rows.
+            gathered = edges_old[src_row.long(), src_col.long()]  # (m_new, e_cap_new, 2)
             return gathered * validf[..., None].to(gathered.dtype), validf
 
         return self._programs.put(("compact",) + key, compact)
@@ -671,21 +821,25 @@ class StreamingEngine:
         cand_dst = v[live_order]
         e_cap = int(self.data.edges.shape[1])
         program = self._full_program(mode, o.regions, self.data.k_pad, e_cap)
-        rows = self._rows(range(o.regions))
-        # The snapshot: the rows as the ingest stream has them now. Later
-        # scatters write the live buffers, never these copies.
-        blk_e, blk_m = self.data.edges[rows], self.data.mask[rows]
+        # The snapshot: all k rows as the ingest stream has them now, gathered
+        # to every rank on the ingest stream. Later scatters write the live
+        # buffers, never these copies.
+        with self.tracer.span("rebuild.gather"):
+            blk_e, blk_m = self._gather_partitions(range(o.regions), "rebuild.gather")
+        own = self._own(range(o.regions))
+        operands = [blk_e, blk_m, self._operand(np.asarray([p // self.g for p in own], dtype=np.int64)),
+                    self._operand(np.asarray(own, dtype=np.int64)), self._operand(cand)]
         side = self._rebuild_stream()
         if side is None:
-            shadow = program(blk_e, blk_m, rows, self._operand(cand), use_cand, params, steps)
+            shadow = program(*operands, use_cand, params, steps)
             done = None
         else:
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                shadow = program(blk_e, blk_m, rows, self._operand(cand), use_cand, params, steps)
+                shadow = program(*operands, use_cand, params, steps)
                 done = torch.cuda.Event()
                 done.record(side)
-            for t in (blk_e, blk_m, rows):
+            for t in operands:
                 t.record_stream(side)  # made on the ingest stream, read on the side stream
         self._flight = {
             "mode": mode_label,
@@ -791,11 +945,12 @@ class StreamingEngine:
         return log
 
     def _splice(self, edges, mask, ops) -> None:
-        """Scatter the commit's replay ops onto the shadow buffers, in place,
-        in fixed-capacity chunks (padding targets the re-zeroed scratch
-        column, as in the ingest scatter)."""
+        """Scatter the commit's replay ops of this rank's regions onto its
+        shadow buffers, in place, in fixed-capacity chunks (padding targets
+        the re-zeroed scratch column, as in the ingest scatter)."""
         e_cap = int(edges.shape[1])
         program = self._splice_program(self.data.k_pad, e_cap)
+        ops = self._local_ops(ops)
         for base in range(0, len(ops), _SPLICE_CAP):
             program(edges, mask, *self._slot_op_operands(ops[base : base + _SPLICE_CAP], _SPLICE_CAP, e_cap))
 
@@ -820,32 +975,32 @@ class StreamingEngine:
     def _full_key(self, mode: str, k: int, k_pad: int, e_cap: int):
         o = self.orderer
         ks = FRK.eval_ks_full(o.config.k_min, o.config.k_max, k)
-        # The objective's distinct counting goes through the segment_rf
-        # kernel on a world of one rank, as the JAX package gates it.
-        use_pallas = self.g == 1
-        return ("full_reorder", mode, k, k_pad, e_cap, ks, use_pallas, self.device)
+        return ("full_reorder", mode, k, k_pad, e_cap, ks, self.device)
 
     def _full_program(self, mode: str, k: int, k_pad: int, e_cap: int):
         """Whole-graph re-order program — the span program generalized to
-        s = k (kernels/full_reorder.py). It reads the snapshot rows and
-        writes fresh buffers (the shadow half of the double buffer).
+        s = k (kernels/full_reorder.py). It reads the snapshot of all k rows
+        and writes fresh buffers of this rank's block (the shadow half of the
+        double buffer).
 
         Modes: ``apply`` applies the host geo_order candidate verbatim;
         ``greedy`` runs the step-parallel greedy on the device unless the
         mirror chose the candidate; ``select`` scores greedy vs candidate on
-        the device (differential)."""
+        the device (differential), the objectives through
+        ``segment_distinct_counts``."""
         spr = e_cap - 1
         cap = k * spr
         key = self._full_key(mode, k, k_pad, e_cap)
-        ks, use_pallas = key[5], key[6]
+        ks = key[5]
         cached = self._programs.get(key)
         if cached is not None:
             return cached
         num_vertices = self.num_vertices
         dev = self.device
+        m = k_pad // self.g
         j = torch.arange(cap, dtype=torch.int64, device=dev)
 
-        def rebuild(blk_e, blk_m, rows, cand, use_cand, params, steps):
+        def rebuild(blk_e, blk_m, local, at, cand, use_cand, params, steps):
             u = blk_e[:, :spr, 0].reshape(cap)
             v = blk_e[:, :spr, 1].reshape(cap)
             valid = blk_m[:, :spr].reshape(cap) > 0
@@ -858,7 +1013,7 @@ class StreamingEngine:
                 if mode == "select":
                     order = FRK.select_full_order_device(
                         u, v, valid, num_vertices, cand, ks, alpha, beta, delta, permpos_t,
-                        use_pallas=use_pallas, steps=steps,
+                        use_pallas=True, steps=steps,
                     )
                 elif use_cand:  # greedy: the mirror's exact decision
                     order = cand
@@ -867,10 +1022,10 @@ class StreamingEngine:
                         u, v, valid, num_vertices, alpha, beta, delta, permpos_t, steps=steps
                     )
             blk, mblk = _splice_layout(u, v, order.long(), n, j, k, spr)
-            edges = torch.zeros((k_pad, e_cap, 2), dtype=torch.int32, device=dev)
-            mask = torch.zeros((k_pad, e_cap), dtype=torch.float32, device=dev)
-            edges[rows] = blk
-            mask[rows] = mblk
+            edges = torch.zeros((m, e_cap, 2), dtype=torch.int32, device=dev)
+            mask = torch.zeros((m, e_cap), dtype=torch.float32, device=dev)
+            edges[local] = blk[at]
+            mask[local] = mblk[at]
             return edges, mask
 
         return self._programs.put(key, rebuild)
@@ -910,46 +1065,56 @@ class StreamingEngine:
         self.last_repair = self.span_repair
 
     def _span_repair_device(self, r0: int, r1: int, cand: np.ndarray, use_cand: bool) -> None:
-        """Run the cached span-repair program over regions [r0, r1): extract
-        the span's live slots from the buffers, re-order, splice back —
-        nothing read back (the host mirror already advanced the slot array).
-        In the production mode the mirror's exact candidate decision picks the
+        """Run the cached span-repair program over regions [r0, r1): gather
+        the span's rows to every rank, extract their live slots, re-order,
+        and write back the rows this rank holds — nothing read back (the host
+        mirror already advanced the slot array). Every rank runs the same
+        program on the same rows, so each keeps its rows of one result. In
+        the production mode the mirror's exact candidate decision picks the
         branch; differential mode keeps the whole selection, objectives
         included, on the device."""
         o = self.orderer
+        parts = range(r0, r1)
         mode = {"oracle": "apply", "differential": "select"}.get(self.span_repair, "greedy")
         program = self._span_program(mode, o.regions, self.data.k_pad, int(self.data.edges.shape[1]), r1 - r0)
-        program(self.data, self._rows(range(r0, r1)), self._operand(cand), use_cand)
-        # Wait here so the rung's reported cost includes the device program.
-        # Degrees untouched: a re-order never changes the graph.
-        self._wait()
+        with self.tracer.span("rung.span_gather"):
+            blk_e, blk_m = self._gather_partitions(parts, "span.gather")
+        with self.tracer.span("rung.span_program"):
+            blk, mblk = program(blk_e, blk_m, self._operand(cand), use_cand)
+            own = self._own(parts)
+            local = self._operand(np.asarray([p // self.g for p in own], dtype=np.int64))
+            at = self._operand(np.asarray([p - r0 for p in own], dtype=np.int64))
+            self.data.edges[local] = blk[at]
+            self.data.mask[local] = mblk[at]
+            # Wait here so the rung's reported cost includes the device program.
+            # Degrees untouched: a re-order never changes the graph.
+            self._wait()
 
     def _span_key(self, mode: str, k: int, k_pad: int, e_cap: int, s: int):
         ks = SRK.eval_ks(self.orderer.config.k_min, self.orderer.config.k_max)
-        use_pallas = self.g == 1
-        return ("span_repair", mode, k, k_pad, e_cap, s, ks, use_pallas, self.device)
+        return ("span_repair", mode, k, k_pad, e_cap, s, ks, self.device)
 
     def _span_program(self, mode: str, k: int, k_pad: int, e_cap: int, s: int):
         """Span-repair program, cached per static signature: span length, k
-        and e_cap changes all re-key.
+        and e_cap changes all re-key. It takes the span's ``(s, e_cap)`` rows
+        and returns their repaired layout.
 
         Modes: ``greedy`` recomputes the expansion order on the device unless
         the mirror chose the candidate; ``select`` scores both orders on the
-        device too (differential); ``apply`` applies the candidate verbatim
-        (the geo_order oracle)."""
+        device too (differential), the objectives' distinct counts through
+        ``segment_distinct_counts`` (the CUDA ``segment_rf`` kernel on a card);
+        ``apply`` applies the candidate verbatim (the geo_order oracle)."""
         spr = e_cap - 1
         cap = s * spr
         key = self._span_key(mode, k, k_pad, e_cap, s)
-        ks, use_pallas = key[6], key[7]
+        ks = key[6]
         cached = self._programs.get(key)
         if cached is not None:
             return cached
         num_vertices = self.num_vertices
         j = torch.arange(cap, dtype=torch.int64, device=self.device)
 
-        def repair(data, rows, cand, use_cand):
-            blk_e = data.edges[rows]  # (s, e_cap, 2) — span rows only
-            blk_m = data.mask[rows]
+        def repair(blk_e, blk_m, cand, use_cand):
             u = blk_e[:, :spr, 0].reshape(cap)
             v = blk_e[:, :spr, 1].reshape(cap)
             valid = blk_m[:, :spr].reshape(cap) > 0
@@ -957,12 +1122,10 @@ class StreamingEngine:
             if mode == "apply" or (mode == "greedy" and use_cand):
                 order = cand
             elif mode == "select":
-                order = SRK.select_span_order_device(u, v, valid, num_vertices, cand, ks, use_pallas=use_pallas)
+                order = SRK.select_span_order_device(u, v, valid, num_vertices, cand, ks, use_pallas=True)
             else:
                 order = SRK.span_order_device(u, v, valid, num_vertices)
-            blk, mblk = _splice_layout(u, v, order.long(), n, j, s, spr)
-            data.edges[rows] = blk
-            data.mask[rows] = mblk
+            return _splice_layout(u, v, order.long(), n, j, s, spr)
 
         return self._programs.put(key, repair)
 

@@ -603,3 +603,59 @@ def test_multirank_layout_on_the_card(cuda, ordered, tmp_path, backend, n_procs,
         assert meta["group"][:3] == [world, meta["rank"], backend]
         assert meta["segment_rf_launches"] > 0
         assert meta["chain_stats"][0]["oracle_checked"]
+
+
+# ------------------------------------------------------ stream over ranks
+STREAM_WORKER = pathlib.Path(__file__).resolve().parent / "test_torch_stream_multirank.py"
+
+
+@pytest.mark.parametrize("backend,n_procs,devs_per_proc", [("gloo", 1, 2), ("nccl", 1, 1)],
+                         ids=["gloo-2-ranks", "nccl-1-rank"])
+def test_stream_engine_over_ranks_on_the_card(cuda, tmp_path, backend, n_procs, devs_per_proc):
+    """The multi-rank stream worker of ``tests/test_torch_stream_multirank.py``
+    with every rank on the one card: two ranks over gloo, or one rank over
+    NCCL. Each script's blocks, reassembled, equal ``pack_slots`` of a host
+    replay through the port's orderer and mirrors, the ladder and rebuild logs
+    equal the replay's, and every rank launches ``segment_rf`` exactly twice
+    a selection of script C."""
+    import test_torch_stream_multirank as SM
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import span_reorder as SRK
+    from repro_torch.stream import SyntheticStream
+    from repro_torch.stream import incremental as inc
+
+    g = rmat_graph(**SM.GRAPH)
+    order = ordering.geo_order(g, seed=0)
+    src, dst = g.src[order].astype(np.int64), g.dst[order].astype(np.int64)
+    np.savez(tmp_path / "inputs.npz", src=src, dst=dst)
+    world = n_procs * devs_per_proc
+    res = MH.spawn_local_cluster(
+        n_procs, devs_per_proc, [str(STREAM_WORKER), "worker", str(tmp_path)], backend=backend,
+        devices=["cuda:0"] * world, timeout=300.0, env_extra={"PYTHONPATH": str(STREAM_WORKER.parents[1] / "src")},
+    )
+    assert res.ok, res.format_logs()
+    ranks = [(dict(np.load(tmp_path / f"rank{r}.npz")), json.loads((tmp_path / f"rank{r}.json").read_text()))
+             for r in range(world)]
+    for name in ("A", "B", "C", "D"):
+        script = "A" if name == "D" else name
+        rep = SM.new_replay((inc, SRK, FRK), script, src, dst, g.num_vertices)
+        stream = SyntheticStream(g, batch_size=SM.BATCH, seed=SM.SCRIPTS[script]["seed"])
+        read = SM.replay_script(rep, script, stream)
+        if name == "D":
+            rep.ingest(stream.batch())
+        o = rep.o
+        rows = [SH.partition_row(p, o.regions, world) for p in range(o.regions)]
+        pad = np.setdiff1d(np.arange(SH.padded_partition_count(o.regions, world)), rows)
+        for part, want in zip(("edges", "mask"), E.host_pack_slots(o.slot_src, o.slot_dst, o.slot_valid,
+                                                                   o.regions, g.num_vertices)):
+            whole = np.concatenate([a[f"{name}_{part}"] for a, _ in ranks])
+            assert whole[rows].tobytes() == want.tobytes() and not whole[pad].any(), (name, part)
+        for arrays, meta in ranks:
+            assert meta[name]["k"] == o.regions and meta["device"] == "cuda:0" and meta["jax_loaded"] is False
+            if name != "D":
+                assert meta[name]["rungs"] == read["rungs"] and meta[name]["log"] == rep.log, name
+    for _, meta in ranks:
+        c = meta["C"]
+        selections = c["span_selections"] + c["full_selections"]
+        assert selections > 0 and c["segment_rf_launches"] == c["objective_calls"] == 2 * selections
+        assert meta["D_equal_to_A"] == {"edges": True, "mask": True, "degrees": True}

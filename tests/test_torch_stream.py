@@ -52,6 +52,7 @@ from repro_torch.stream import (
 from repro_torch.stream import ingest as ingest_mod
 from repro_torch.stream import updates as upd
 from repro_torch.stream import workload as wl
+from torch_stream_replay import HostReplay, timeless
 
 QUIET = dict(partial_drift=40.0, full_drift=50.0)  # only a forced drift escalates
 
@@ -345,11 +346,34 @@ def test_shard_unshard_round_trip_at_one_rank_and_more_ranks_raise(ordered):
     assert [(b.devices, b.k_pad, b.rows_per_device) for b in blocks] == [(2, 6, 3)] * 2
     whole = torch.cat([b.edges for b in blocks])
     assert torch.equal(whole[[SH.partition_row(p, 6, 2) for p in range(6)]], data.edges)
-    # ... while the streaming engine, still a world of one, refuses more ranks.
+    # ... and a streaming engine of each rank commits exactly that rank's
+    # block of the slot pack, with no process group behind the stand-in.
     o, _ = _orderers(ordered)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        StreamingEngine(o, device="cpu", group=GraphGroup(size=2, rank=0, device="cpu", backend="gloo",
-                                                          processes=(0, 0)))
+    slots = E.pack_slots(o.slot_src, o.slot_dst, o.slot_valid, o.regions, g.num_vertices, device="cpu")
+    for r in (0, 1):
+        group = GraphGroup(size=2, rank=r, device="cpu", backend="gloo", processes=(0, 0))
+        eng = StreamingEngine(o, group=group, commit="pack")
+        want = E.shard_engine_data(slots, group)
+        assert torch.equal(eng.data.edges, want.edges)
+        assert torch.equal(eng.data.mask, want.mask) and torch.equal(eng.data.degrees, slots.degrees)
+        assert eng.data.local_partitions() == want.local_partitions() and eng.g == 2
+
+
+def test_from_restored_and_stream_commit_equal_the_pack_commit(ordered):
+    o, _ = _orderers(ordered, regions=5)
+    stream = SyntheticStream(ordered[0], batch_size=40, delete_frac=0.3, seed=4)
+    for _ in range(3):
+        o.apply(stream.batch())
+    o.drain_ops()
+    want = StreamingEngine(o, device="cpu").data
+    for eng in (StreamingEngine.from_restored(o, device="cpu"), StreamingEngine(o, device="cpu", commit="stream")):
+        for name in ("edges", "mask", "degrees"):
+            got, ref = getattr(eng.data, name), getattr(want, name)
+            assert got.dtype == ref.dtype and got.numpy().tobytes() == ref.numpy().tobytes(), name
+        assert (eng.data.k, eng.data.num_edges) == (want.k, want.num_edges)
+        eng.verify_bit_identity()
+    with pytest.raises(ValueError, match="commit"):
+        StreamingEngine(o, device="cpu", commit="other")
 
 
 def test_program_cache_counters_equal_reference():
@@ -372,137 +396,8 @@ def test_program_cache_counters_equal_reference():
 
 
 # ------------------------------------------------- engine against host replay
-class HostReplay:
-    """The stream of a ``StreamingEngine`` replayed with no device: the JAX
-    package's orderer and numpy mirrors, driven by the engine's ladder logic
-    (resync on re-layout, anticipation, async dispatch → flight → commit,
-    abort on rescale). What it computes is what the engine's host state,
-    ladder and rebuild log must equal."""
-
-    def __init__(self, src, dst, nv, regions, config, span_repair, full_rebuild, flight):
-        self.o = J_inc.IncrementalOrderer(src, dst, nv, regions=regions, config=J_inc.StreamConfig(**config))
-        self.span_repair, self.full_rebuild, self.flight_len = span_repair, full_rebuild, flight
-        self.flight, self.log, self.last_drift, self.rate = None, [], 1.0, 0.0
-        self.rung_counts = {"none": 0, "partial": 0, "full": 0}
-
-    def _resync(self):
-        if self.flight is not None:
-            self._abort("resync")
-        self.o.drain_ops()
-        self.o.needs_resync = False
-
-    def _sync(self):
-        if self.o.needs_resync:
-            self._resync()
-        else:
-            self.o.drain_ops()
-
-    def ingest(self, batch):
-        counts = self.o.apply(batch)
-        if self.o.needs_resync:
-            self._resync()
-            return counts, 0, True
-        return counts, len(self.o.drain_ops()[0]), False
-
-    def rescale(self, k):
-        self._sync()
-        if self.flight is not None:
-            self._abort("rescale")
-        self.o.relayout(k)
-        self.o.drain_gather_map()
-        self.o.needs_resync = False
-
-    def _partial(self):
-        o = self.o
-        if self.span_repair == "host":
-            o.partial_reorder()
-            self._sync()
-            return
-        r0, r1 = o.span_bounds()
-        u, v, valid = o.span_arrays(r0, r1)
-        if int(valid.sum()) < 2:
-            return
-        cand = J_SRK.identity_candidate(valid) if self.span_repair == "device" else o.geo_span_candidate(u, v, valid)
-        if self.span_repair == "oracle":
-            o.apply_span_order(r0, r1, cand, emit_ops=False)
-        else:
-            o.partial_reorder_mirror(region=r0, candidate=cand, emit_ops=False)
-
-    def _full(self):
-        o = self.o
-        if self.full_rebuild == "host":
-            o.full_rebuild()
-            self._resync()
-            return
-        u, v, valid = o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy()
-        o.begin_full_rebuild()
-        nv, n_live, mode = o.num_vertices, int(valid.sum()), self.full_rebuild
-        deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
-        if mode != "geo" and not J_FRK.greedy_fits_int32(n_live, o.config.k_min, o.config.k_max, int(deg.max())):
-            mode = "geo"
-            label = f"{self.full_rebuild}+host-fallback"
-        else:
-            label = self.full_rebuild
-        if mode == "geo":
-            chosen = J_FRK.geo_full_candidate(u, v, valid, nv, o.config.k_min, o.config.k_max)
-        else:
-            cand = (J_FRK.identity_candidate(valid) if mode == "device"
-                    else J_FRK.geo_full_candidate(u, v, valid, nv, o.config.k_min, o.config.k_max))
-            ks = J_FRK.eval_ks_full(o.config.k_min, o.config.k_max, o.regions)
-            params = J_FRK.greedy_params(n_live, o.config.k_min, o.config.k_max, int(deg.max()))
-            chosen, _ = J_FRK.select_full_order_host(u, v, valid, nv, cand, ks, *params,
-                                                     J_FRK.fallback_positions(nv))
-        live = np.asarray(chosen[:n_live], dtype=np.int64)
-        self.flight = dict(mode=label, countdown=self.flight_len, src=u[live], dst=v[live], snapshot_edges=n_live)
-
-    def _commit(self):
-        fl, self.flight = self.flight, None
-        replayed = self.o.rebuild_delta_batches
-        ok = self.o.commit_full_rebuild(fl["src"], fl["dst"])
-        splice_ops = 0
-        if not ok:
-            self._resync()
-        else:
-            splice_ops = len(self.o.drain_ops()[0])
-        self.log.append(dict(kind="full_rebuild", mode=fl["mode"], committed=bool(ok), aborted=False,
-                             snapshot_edges=fl["snapshot_edges"], replayed_batches=replayed,
-                             splice_ops=splice_ops, flight_batches=self.flight_len - fl["countdown"]))
-
-    def _abort(self, reason):
-        fl, self.flight = self.flight, None
-        self.o.abort_full_rebuild()
-        self.log.append(dict(kind="full_rebuild", mode=fl["mode"], committed=False, aborted=True,
-                             abort_reason=reason, snapshot_edges=fl["snapshot_edges"], replayed_batches=0,
-                             splice_ops=0, flight_batches=self.flight_len - fl["countdown"]))
-
-    def monitor(self):
-        self._sync()
-        d = self.o.drift()
-        lookahead = 0.0
-        if self.full_rebuild != "host" and self.flight_len > 0:
-            self.rate = 0.7 * self.rate + 0.3 * max(0.0, d - self.last_drift)
-            lookahead = self.flight_len * self.rate
-        self.last_drift = d
-        if self.flight is not None:
-            self.flight["countdown"] -= 1
-            if self.flight["countdown"] <= 0:
-                self._commit()
-                rung = "full"
-            else:
-                rung = "none"
-        else:
-            rung = self.o.maybe_escalate(partial_fn=self._partial, full_fn=self._full,
-                                         full_lookahead=lookahead, partial_shadow=2.0 * lookahead)
-            if self.flight is not None and self.flight["countdown"] <= 0:
-                self._commit()
-        self.rung_counts[rung] += 1
-        return rung
-
-
-def _timeless(log):
-    return [{k: x for k, x in r.items() if not k.endswith("_s")} for r in log]
-
-
+# HostReplay (tests/torch_stream_replay.py) replays the stream with the JAX
+# package's orderer and numpy mirrors.
 def _run_against_replay(ordered, *, span_repair="device", full_rebuild="host", flight=0, config=None,
                         batches=7, rescales=None, force_full=(), seed=13):
     """Drive the engine and the replay with the same stream; after every event
@@ -512,7 +407,7 @@ def _run_against_replay(ordered, *, span_repair="device", full_rebuild="host", f
     config = dict(partial_drift=1.0, full_drift=99.0, span_regions=2) if config is None else config
     o = IncrementalOrderer(src, dst, g.num_vertices, regions=4, config=StreamConfig(**config))
     eng = StreamingEngine(o, device="cpu", span_repair=span_repair, full_rebuild=full_rebuild, rebuild_flight=flight)
-    rep = HostReplay(src, dst, g.num_vertices, 4, config, span_repair, full_rebuild, flight)
+    rep = HostReplay((J_inc, J_SRK, J_FRK), src, dst, g.num_vertices, 4, config, span_repair, full_rebuild, flight)
     s1, s2 = SyntheticStream(g, batch_size=32, seed=seed), J_upd.SyntheticStream(J_rmat(7, 6, seed=0),
                                                                                  batch_size=32, seed=seed)
     rungs, log = [], []
@@ -538,7 +433,7 @@ def _run_against_replay(ordered, *, span_repair="device", full_rebuild="host", f
         _same_slots(o, rep.o)
         log += eng.drain_rebuild_events()
     assert eng.rung_counts == rep.rung_counts
-    assert _timeless(log) == rep.log
+    assert timeless(log) == rep.log
     return eng, rungs, log
 
 
