@@ -8,8 +8,9 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``),
+2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``,
+   ``full_reorder``, the full rung's greedy),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
    check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
    instantiation issues HGMMA;
@@ -79,9 +80,13 @@ Phases, in order; any failure raises and the script exits nonzero:
    just before it: an engine in ``differential`` span and full mode and one
    in ``device`` full mode with two batches in flight, one rebuild aborted by
    a rescale and one committed, each event checked against ``pack_slots``;
-   ``segment_rf`` must launch exactly twice per selection on the card. Then
-   the rungs' device programs alone against their host mirrors: the span
-   order and selection on path 3's last span, the greedy on path 4's slots;
+   ``segment_rf`` must launch exactly twice per selection on the card, and
+   the greedy kernel (``full_reorder``) in both engines, each launch tapped
+   and held against the host mirror (permutation and step count). Then,
+   with the counts set to 0 again, the rungs' device programs alone against
+   their host mirrors: the span order and selection on path 3's last span;
+   the greedy kernel on path 4's slots (beside its plain version's step loop
+   on the card) and on an RMAT-16 graph's slots;
 9. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
    once under ``build/multirank/`` for the ranks to load): (a) g = 4 ranks as
    2 processes × 2 over gloo, every rank on the one card (NCCL refuses two
@@ -112,7 +117,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    path 4's RMAT-14 graph and rung settings, ``differential`` span and full
    rungs, one rebuild committed and one aborted by a rescale 8→10, every
    ``segment_rf`` launch of every rank tapped and held exactly against the
-   plain version, 2 a selection. Each rank prints its time and bytes for
+   plain version, 2 a selection, and every greedy launch held against the
+   host mirror; the greedy kernel must launch on every rank. Each rank prints its time and bytes for
    each event (host apply and scatter; span gather, program and mirror;
    rescale re-layout, exchange and compact; the restore commit) and its peak
    RSS; the parent holds the ranks' ladders, logs and rescale counts equal
@@ -120,7 +126,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    nothing. ``--cards 4`` runs (c): (a) and (b) over NCCL, a card a rank;
 11. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
-   time, at the paths' full-size shapes. A bound counts the bytes the
+   time, at the paths' full-size shapes; ``segment_rf`` on the card alone
+   (calls captured in a CUDA graph) and as a caller pays it (back-to-back
+   wrapper calls), at every row shape the paths count. A bound counts the bytes the
    function must move from this run's inputs (for ``edge_spmv``: its three
    edge arrays, its output, and of x only the distinct entries each chunk
    gathers) and, for flash, the operations of the key positions the masks
@@ -156,7 +164,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
 H100_FP32_OPS_PER_S = 67e12  # non-tensor-core f32 rate; the kernel's int compares run on the same ALUs
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
-KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention")
+KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder")
 PACK_KS = (4, 16, 64, 128)
 ROW_KS = (4, 8, 12, 16, 17, 64, 128)  # every k whose rows the main path counts
 PAGERANK_RTOL = 1e-4  # CUDA scatter-add uses atomics: f32 sums in varying order
@@ -189,6 +197,11 @@ STREAM_RESCALES = {2: 20}
 # priority bound is 2.78e9 on this graph and the engine would apply the host
 # order instead of running the greedy (its int32 fallback).
 RUNGS_SCALE, RUNGS_REGIONS, RUNGS_BATCH, RUNGS_K_MAX = 14, 8, 1024, 32
+# The greedy kernel alone at RMAT-16 (edge factor 16, seed 0: 65,536 vertices,
+# 909,538 edges), beside path 4's 16,384 vertices, for its time a step against
+# |V|. k in [26, 32]: the widest range with k_max 32 whose int32 priority bound
+# holds on this graph (greedy_fits_int32; max degree 9,699).
+GREEDY_WIDE_SCALE, GREEDY_WIDE_K_MIN = 16, 26
 # Path 5, the multi-rank main path on the slice-1 graph and GEO order: (a) g = 4
 # ranks as 2 processes x 2 over gloo, every rank on the one card (NCCL refuses
 # two ranks of one communicator on one device); (b) one rank over NCCL; with
@@ -292,6 +305,59 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """The card's time alone for one ``fn()``: ``reps`` calls captured in one
+    CUDA graph (the wrappers launch on the current stream, the capture
+    stream there), its replay timed with events. Host work is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def greedy_tap(FRK, tapped: list):
+    """A stand-in for ``FRK.greedy_keys`` that calls the kernel's wrapper
+    unchanged and keeps device copies of its inputs, keys and step count
+    (no host read during the run)."""
+    kernel = FRK.greedy_keys
+
+    def tap(u, v, valid, nv, alpha, beta, delta, permpos):
+        keys, steps, work = kernel(u, v, valid, nv, alpha, beta, delta, permpos)
+        tapped.append(dict(u=u.clone(), v=v.clone(), valid=valid.clone(), nv=nv, params=(alpha, beta, delta),
+                           permpos=permpos.clone(), keys=keys.clone(), steps=steps.clone(), work=work.clone()))
+        return keys, steps, work
+
+    return kernel, tap
+
+
+def greedy_against_mirror(FRK, rec: dict) -> dict:
+    """One tapped greedy launch held against the host mirror on its inputs:
+    the permutation its keys sort to and its step count."""
+    u, v, valid, permpos = (rec[k].cpu().numpy() for k in ("u", "v", "valid", "permpos"))
+    host, steps = FRK._full_order_host(u.astype(np.int64), v.astype(np.int64), valid, rec["nv"], *rec["params"],
+                                       permpos.astype(np.int64))
+    k = rec["keys"].cpu().numpy()
+    perm = np.lexsort((np.arange(len(u)), k[3], k[2], k[1], k[0]))
+    return dict(slots=int(len(u)), live=int(valid.sum()), steps=int(rec["steps"][0]), mirror_steps=int(steps),
+                walked=int(rec["work"][0]), fallbacks=int(rec["work"][1]),
+                exact=bool(np.array_equal(perm, host)) and int(rec["steps"][0]) == int(steps))
 
 
 def synced_s(fn):
@@ -454,8 +520,12 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     rescale and one committed. Every event is checked against ``pack_slots``.
     Every ``segment_rf`` launch of the path is tapped: its rows and counts are
     kept and, once the launches are read, held exactly against the plain
-    version on those rows. Returns readings, with ``segment_rf``'s launches,
-    selections and the tapped launches' row shapes."""
+    version on those rows. Every launch of the greedy kernel is tapped too and
+    held against the host mirror on its inputs (permutation and step count);
+    engine A (its selection) and engine B (its device rebuilds) must each
+    launch it. Returns readings, with ``segment_rf``'s launches, selections
+    and the tapped launches' row shapes, and the greedy's launches."""
+    from repro_torch.kernels import full_reorder as FRK
     from repro_torch.kernels import span_reorder as SRK
     from repro_torch.obs.trace import Tracer
     from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
@@ -470,6 +540,8 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
         return counts
 
     SRK.segment_distinct_counts = tap
+    greedy_tapped: list = []
+    greedy_kernel, FRK.greedy_keys = greedy_tap(FRK, greedy_tapped)
 
     t0 = time.perf_counter()
     g, src, dst = rungs_graph()
@@ -511,6 +583,7 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     sp = span_sums(tracer)
     a_read = dict(rebuild=log_a[0], span_mirror_s=sp.get("rung.span_mirror", 0.0),
                   span_device_s=sp.get("rung.span_device", 0.0), rung_counts=dict(eng.rung_counts))
+    greedy_a = len(greedy_tapped)
     del eng, o
 
     # Engine B: device greedy, two batches in flight; a rescale aborts the
@@ -536,10 +609,19 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
             f"{r['flight_batches']} batches in flight, {r['splice_ops']} slot ops spliced, "
             f"dispatch {r['dispatch_s'] * 1e3:.3f} ms (host: mirror + enqueue), commit {r['commit_s'] * 1e3:.3f} ms")
     SRK.segment_distinct_counts = kernel
+    FRK.greedy_keys = greedy_kernel
     launches = segment_rf.launches
     check(selections > 0 and launches == 2 * selections == len(tapped),
           f"rungs: segment_rf launched {launches} times ({len(tapped)} tapped) for {selections} device "
           f"selections, expected 2 each")
+    greedy_b = len(greedy_tapped) - greedy_a
+    check(FRK.launches == len(greedy_tapped) and greedy_a > 0 and greedy_b > 0,
+          f"rungs: the greedy kernel launched {FRK.launches} times ({greedy_a} tapped in engine A, {greedy_b} in "
+          f"engine B); each engine must launch it")
+    greedy = [greedy_against_mirror(FRK, rec) for rec in greedy_tapped]
+    check(all(t["exact"] for t in greedy), f"rungs: a greedy launch differs from the host mirror: {greedy}")
+    log(f"rungs: the greedy kernel launched {len(greedy)} times ({greedy_a} in engine A, {greedy_b} in engine B), "
+        f"each equal to the host mirror in permutation and steps {[t['steps'] for t in greedy]}")
     log(f"rungs: {len(events)} bit-identity checks passed; {selections} device selections, segment_rf "
         f"launched {launches} times (2 each)")
     # The path's own launches against the plain version on the same rows.
@@ -553,16 +635,20 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
     log(f"rungs: all {len(tapped)} segment_rf launches equal the plain version on their rows {shapes}")
     widest = max((rows for rows, _ in tapped), key=lambda r: r.numel())
     return dict(a=a_read, rebuilds=log_a + log_b, checks=len(events), selections=selections, launches=launches,
+                greedy=greedy, greedy_by_engine=dict(a=greedy_a, b=greedy_b),
                 segment_rf=dict(shapes=shapes, max_abs_err=max_err, widest=widest),
                 slots=(o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy(), g.num_vertices),
                 graph=(g, src, dst))
 
 
 def rows_timing(rows, segment_rf) -> dict:
-    """``segment_rf``'s time, its plain version's and its byte bound on one
-    (C, W) array of sorted key rows."""
+    """``segment_rf``'s time on one (C, W) array of sorted key rows: on the
+    card alone (``ms``: wrapper calls captured in a CUDA graph) and as a
+    caller pays it (``wrapper_ms``: back-to-back calls between two events,
+    host work included); its plain version's time and its byte bound."""
     c, w = rows.shape
-    return dict(shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows), 20),
+    return dict(shape=[c, w], ms=graph_ms(lambda: segment_rf.segment_distinct_counts(rows), 50),
+                wrapper_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows), 50),
                 plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows), 5),
                 bound_ms=(c * w * 4 + c * 4) / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
 
@@ -570,9 +656,11 @@ def rows_timing(rows, segment_rf) -> dict:
 def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     """The rungs' device programs alone, each held exactly against its host
     mirror on the same slots: the span order and the span selection on path
-    3's last worst span (full width), and the step-parallel greedy on path
-    4's final slots, run for the mirror's step count. Times: the card's (CUDA
-    events) and the host's enqueue; the mirror's on the host clock."""
+    3's last worst span (full width); the greedy kernel on path 4's final
+    slots, beside its plain version's step loop on the card, and on an
+    RMAT-16 graph's slots (``greedy_times``). Times: the card's (CUDA events)
+    and the host's enqueue; the mirror's on the host clock."""
+    from repro_torch.core.graph import rmat_graph
     from repro_torch.kernels import full_reorder as FRK
     from repro_torch.kernels import span_reorder as SRK
 
@@ -618,9 +706,26 @@ def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     del ut, vt, vd, ct
 
     u, v, valid, nv = rungs_slots
+    out["greedy"] = greedy_times(FRK, dev, u, v, valid, nv, 4, RUNGS_K_MAX, "path 4's slots", plain=True)
+    g = rmat_graph(scale=GREEDY_WIDE_SCALE, edge_factor=16, seed=0)
+    out["greedy_wide"] = greedy_times(FRK, dev, g.src.astype(np.int64), g.dst.astype(np.int64),
+                                      np.ones(g.num_edges, bool), g.num_vertices, GREEDY_WIDE_K_MIN, RUNGS_K_MAX,
+                                      f"RMAT-{GREEDY_WIDE_SCALE}", plain=False)
+    return out
+
+
+def greedy_times(FRK, dev, u, v, valid, nv: int, k_min: int, k_max: int, what: str, plain: bool) -> dict:
+    """The greedy kernel alone on one slot array, held against the host
+    mirror (permutation and step count): its card time (CUDA events around
+    ``greedy_keys``: the incidence list's torch ops and the one launch) and
+    enqueue time, the whole ``full_order_device`` (with the 5-key sort) and,
+    with ``plain``, the plain version's step loop on the card, run for the
+    mirror's step count. The bound counts the bytes the run needs: each
+    step's argmin reads 10 B a vertex, each incidence entry walked 13 B
+    (inc, u, v, done), and 16 B of keys a live slot."""
     n = int(valid.sum())
     deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
-    alpha, beta, delta = FRK.greedy_params(n, 4, RUNGS_K_MAX, int(deg.max()))
+    alpha, beta, delta = FRK.greedy_params(n, k_min, k_max, int(deg.max()))
     permpos = FRK.fallback_positions(nv)
     t0 = time.perf_counter()
     host_perm, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
@@ -628,15 +733,43 @@ def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     ut, vt = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (u, v))
     vd = torch.from_numpy(valid).to(dev)
     pt = torch.from_numpy(permpos.astype(np.int32)).to(dev)
-    got, greedy_ms, greedy_enq = timed(
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        enqueue = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(end), enqueue * 1e3
+
+    timed(lambda: FRK.greedy_keys(ut, vt, vd, nv, alpha, beta, delta, pt))  # warm-up
+    (keys, k_steps, work), ms, enqueue_ms = timed(lambda: FRK.greedy_keys(ut, vt, vd, nv, alpha, beta, delta, pt))
+    got, order_ms, order_enqueue_ms = timed(
         lambda: FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, steps=steps))
-    check(np.array_equal(got.cpu().numpy(), host_perm), "full_order_device differs from its host mirror")
-    out["greedy"] = dict(slots=int(u.shape[0]), live=n, steps=steps, ms=greedy_ms, enqueue_ms=greedy_enq,
-                         mirror_ms=mirror_ms)
-    log(f"greedy twin at path 4's size ({u.shape[0]} slots, {n} live, {steps} steps): {greedy_ms:.3f} ms on the "
-        f"card, {greedy_enq:.3f} ms to enqueue ({greedy_enq / steps * 1e3:.1f} us a step), host mirror "
-        f"{mirror_ms:.3f} ms; equal to the mirror")
-    return out
+    check(np.array_equal(got.cpu().numpy(), host_perm) and int(k_steps[0]) == steps,
+          f"the greedy kernel differs from its host mirror at {what} (steps {int(k_steps[0])}, mirror {steps})")
+    walked, fallbacks = (int(x) for x in work.cpu())
+    bytes_ = steps * 10 * nv + walked * 13 + 16 * n
+    bytes_ms = bytes_ / H100_BYTES_PER_S * 1e3
+    ops_ms = 4 * steps * nv / H100_FP32_OPS_PER_S * 1e3  # the argmin's test, priority, pack and min a vertex
+    r = dict(slots=int(u.shape[0]), live=n, vertices=nv, k=[k_min, k_max], steps=steps, ms=ms,
+             us_per_step=ms / steps * 1e3, enqueue_ms=enqueue_ms, order_ms=order_ms, order_enqueue_ms=order_enqueue_ms,
+             mirror_ms=mirror_ms, walked=walked, fallbacks=fallbacks, bytes=bytes_,
+             bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+    if plain:
+        got, r["plain_ms"], r["plain_enqueue_ms"] = timed(
+            lambda: FRK.full_order_device_torch(ut, vt, vd, nv, alpha, beta, delta, pt, steps=steps))
+        check(np.array_equal(got.cpu().numpy(), host_perm), f"the plain greedy differs from its mirror at {what}")
+    log(f"greedy kernel at {what} ({r['slots']} slots, {n} live, {nv} vertices, {steps} steps): {ms:.3f} ms on the "
+        f"card ({r['us_per_step']:.2f} us a step), {enqueue_ms:.3f} ms to enqueue; full_order_device {order_ms:.3f} "
+        f"ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {bytes_} B, {walked} incidence entries walked); host "
+        f"mirror {mirror_ms:.3f} ms"
+        + (f"; the plain step loop on the card {r['plain_ms']:.3f} ms ({r['plain_enqueue_ms']:.3f} ms to enqueue)"
+           if plain else "") + "; equal to the mirror")
+    return r
 
 
 def multirank_worker(run_dir: pathlib.Path) -> int:
@@ -837,19 +970,6 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
     return out
 
 
-def own_rss_mb() -> tuple:
-    """``(field, MB)``: this process's peak resident set since it started its
-    program (``VmHWM`` of ``/proc/self/status``) or, where the kernel does not
-    report a peak there, its resident set now (``VmRSS``), for the caller to
-    sample. ``ru_maxrss`` would not do in a rank: Linux carries a process's
-    peak across ``fork`` and ``exec``, so a rank would report its launcher's
-    peak whenever that is the larger."""
-    fields = dict(line.split(":", 1) for line in pathlib.Path("/proc/self/status").read_text().splitlines()
-                  if ":" in line)
-    field = "VmHWM" if "VmHWM" in fields else "VmRSS"
-    return field, int(fields[field].split()[0]) / 1024.0
-
-
 def streamrank_worker(run_dir: pathlib.Path) -> int:
     """One rank of path 6 (``--stream-rank-worker``, started by
     ``streamrank_path`` through ``launch_local_cluster``): an orderer replica
@@ -867,6 +987,7 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
 
     import torch.distributed as dist
 
+    from repro_torch.kernels import full_reorder as FRK
     from repro_torch.kernels import segment_rf
     from repro_torch.kernels import span_reorder as SRK
     from repro_torch.launch import multihost as MH
@@ -887,6 +1008,8 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
         return counts
 
     SRK.segment_distinct_counts = tap  # both rungs' objectives look it up at each call
+    greedy_tapped: list = []
+    greedy_kernel, FRK.greedy_keys = greedy_tap(FRK, greedy_tapped)  # full_order_device looks it up at each call
     tracer, reg = Tracer(), OM.MetricsRegistry()
     meta = dict(rank=r, device=str(dev), backend=group.backend, events=[])
     byte_names = ("scatter.upload", "span.gather", "rebuild.gather", "rescale.sent", "rescale.received")
@@ -898,7 +1021,7 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
     o = IncrementalOrderer(inputs["src"].astype(np.int64), inputs["dst"].astype(np.int64), v, regions=cfg["regions"],
                            config=StreamConfig(**cfg["config"]))
     meta["orderer_s"] = time.perf_counter() - t0
-    rss_samples = [own_rss_mb()[1]]
+    OM.read_peak_rss()  # without VmHWM: a VmRSS sample for the running maximum
     engine_kw = dict(group=group, span_repair=cfg["span_repair"], full_rebuild=cfg["full_rebuild"],
                      rebuild_flight=cfg["flight"], tracer=tracer, metrics_registry=reg)
     t0 = time.perf_counter()
@@ -945,7 +1068,7 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
         t0 = time.perf_counter()
         eng.verify_bit_identity()
         ev["verify_s"] = time.perf_counter() - t0
-        rss_samples.append(own_rss_mb()[1])
+        OM.read_peak_rss()
         meta["events"].append(ev)
         print(f"rank {r} {ev['kind']}: " + ", ".join(f"{k} {x:.3f} ms" for k, x in sorted(ms.items()))
               + f"; bytes {ev['bytes']}; " + ", ".join(f"{k} {x}" for k, x in ev.items()
@@ -954,13 +1077,15 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
     meta["log"] = [{k: x for k, x in rec.items() if not k.endswith("_s")} for rec in eng.drain_rebuild_events()]
     meta["selections"] = int(selections) + sum(rec["mode"] == "differential" for rec in meta["log"])
     meta["k"], meta["rung_counts"] = eng.k, eng.rung_counts
-    meta["rss_field"], meta["peak_rss_mb"] = own_rss_mb()
-    meta["peak_rss_mb"] = max(meta["peak_rss_mb"], *rss_samples)
+    meta["rss_field"], meta["peak_rss_mb"] = OM.read_peak_rss()
     SRK.segment_distinct_counts = kernel
+    FRK.greedy_keys = greedy_kernel
     meta["segment_rf_launches"] = segment_rf.launches
     meta["segment_rf_tapped"] = [
         dict(shape=list(rows.shape), exact=bool(torch.equal(counts, segment_rf.segment_distinct_counts_torch(rows))))
         for rows, counts in tapped]
+    meta["greedy_launches"] = FRK.launches
+    meta["greedy_tapped"] = [greedy_against_mirror(FRK, rec) for rec in greedy_tapped]
     arrays = dict(edges=eng.data.edges.cpu().numpy(), mask=eng.data.mask.cpu().numpy())
     if r == 0 and tapped:
         by_width = sorted((rows for rows, _ in tapped), key=lambda t: t.shape[1])
@@ -971,7 +1096,8 @@ def streamrank_worker(run_dir: pathlib.Path) -> int:
     print(f"rank {r}: orderer {meta['orderer_s']:.3f} s, first commit {meta['commit_s']:.3f} s, peak RSS "
           f"{meta['peak_rss_mb']:.1f} MB ({meta['rss_field']}, read after the orderer's build and after each "
           f"event), segment_rf launched {meta['segment_rf_launches']} times for "
-          f"{meta['selections']} selections", flush=True)
+          f"{meta['selections']} selections, the greedy kernel {meta['greedy_launches']} times "
+          f"{[(t['steps'], t['exact']) for t in meta['greedy_tapped']]}", flush=True)
     return 0
 
 
@@ -1019,6 +1145,10 @@ def streamrank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, de
         check(launches == 2 * meta["selections"] == len(tapped) and all(t["exact"] for t in tapped),
               f"path 6 ({tag}) rank {i}: segment_rf launched {launches} times ({len(tapped)} tapped) for "
               f"{meta['selections']} selections, exact {[t['exact'] for t in tapped]}")
+        greedy = meta["greedy_tapped"]
+        check(meta["greedy_launches"] == len(greedy) and all(t["exact"] for t in greedy),
+              f"path 6 ({tag}) rank {i}: the greedy kernel launched {meta['greedy_launches']} times "
+              f"({len(greedy)} tapped), equal to the mirror (permutation and steps) {[t['exact'] for t in greedy]}")
         for e in meta["events"]:
             if e["kind"] == "restore":
                 check(all(e["equal"].values()), f"path 6 ({tag}) rank {i}: the restored pack differs: {e['equal']}")
@@ -1033,6 +1163,8 @@ def streamrank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, de
                orderer_s_by_rank=[m["orderer_s"] for _, m in ranks], commit_s_by_rank=[m["commit_s"] for _, m in ranks],
                peak_rss_mb_by_rank=[m["peak_rss_mb"] for _, m in ranks], rss_field=first["rss_field"], log=first["log"],
                segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
+               greedy_launches=[m["greedy_launches"] for _, m in ranks],
+               greedy_by_rank=[m["greedy_tapped"] for _, m in ranks],
                selections=[m["selections"] for _, m in ranks],
                segment_rf_shapes=sorted({tuple(t["shape"]) for _, m in ranks for t in m["segment_rf_tapped"]}))
     for j, e in enumerate(first["events"]):
@@ -1055,7 +1187,7 @@ def streamrank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, de
         f"{wall:.3f} s in all; {len(first['events'])} events, every one bit-identical on every rank; orderers "
         f"{[round(x, 3) for x in out['orderer_s_by_rank']]} s, peak RSS {[round(x, 1) for x in out['peak_rss_mb_by_rank']]} "
         f"MB by rank ({first['rss_field']}); segment_rf launches by rank {out['segment_rf_launches']} for {out['selections']} selections, "
-        f"each exact")
+        f"each exact; greedy kernel launches by rank {out['greedy_launches']}, each equal to the mirror")
     return out
 
 
@@ -1088,11 +1220,13 @@ def main() -> int:
     from repro_torch.kernels import _build, edge_spmv, ops, segment_rf
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import full_reorder as FRK
     from repro_torch.kernels.ref import segment_distinct_counts_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
-    modules = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": fa, "decode_attention": dec}
+    modules = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": fa, "decode_attention": dec,
+               "full_reorder": FRK}
 
     def reset_launches() -> None:
         for m in modules.values():
@@ -1111,7 +1245,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = KERNELS if args.cards == 1 else ("segment_rf",)  # path 5 launches segment_rf only
+    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder")  # what paths 5 and 6 launch
     lib_paths = _build.build_all(built)
     for name in built:
         _build.load(name)
@@ -1144,7 +1278,7 @@ def main() -> int:
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.cards == 1:  # the four-card call runs slice 1 and path 5 (c) only
+    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c) and path 6 (c) only
         # ------------------------------------------------ kernel parity: segment_rf
         rng = np.random.default_rng(0)
         cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
@@ -1377,6 +1511,8 @@ def main() -> int:
         check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
         check([(r["committed"], r["aborted"]) for r in b["log"]] == [(True, False), (False, True)],
               f"path 6 (b): rebuild log {b['log']}")
+        check(all(n > 0 for n in b["greedy_launches"]),
+              f"path 6 (b): the greedy kernel must launch on every rank, launched {b['greedy_launches']}")
 
     g4_gloo = ("g4_gloo_1card", "gloo", MULTIRANK_PROCS, MULTIRANK_DEVS,
                ["cuda:0"] * (MULTIRANK_PROCS * MULTIRANK_DEVS), MULTIRANK_STEPS)
@@ -1453,7 +1589,7 @@ def main() -> int:
     phases["decode_qwen3_s"] = time.perf_counter() - t0
     phases["slice2_path_s"] = time.perf_counter() - t_slice2
     slice2_launches = read_launches()
-    expected2 = {"segment_rf": 0, "edge_spmv": len(spmv_calls), "flash_attention": 2, "decode_attention": 1}
+    expected2 = {**dict.fromkeys(KERNELS, 0), "edge_spmv": len(spmv_calls), "flash_attention": 2, "decode_attention": 1}
     slice2_tc, slice2_merges = fa.tc_launches, dec.merge_launches
     check(slice2_launches == expected2, f"slice 2 launched {slice2_launches}, expected {expected2}")
     check(slice2_tc == 2, f"slice 2's two bf16 flash calls ran the tensor-core kernel {slice2_tc} times, expected 2")
@@ -1549,12 +1685,20 @@ def main() -> int:
     torch.cuda.synchronize()
     phases["rungs_path_s"] = time.perf_counter() - t0
     rungs_launches = read_launches()
-    check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"]},
-          f"rungs path launched {rungs_launches}, expected segment_rf twice per selection and nothing else")
+    check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"],
+                             "full_reorder": len(rungs_read["greedy"])},
+          f"rungs path launched {rungs_launches}, expected segment_rf twice per selection, the greedy kernel once "
+          f"per device greedy, and nothing else")
     log(f"rungs path: {phases['rungs_path_s']:.3f} s, launches {rungs_launches}")
     rungs_rf = rungs_read.pop("segment_rf")
     report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"], rungs_rf["max_abs_err"])
+    reset_launches()
+    t0 = time.perf_counter()
     stream_twins = twin_times(dev, stream_read.pop("span"), rungs_read.pop("slots"), segment_rf)
+    phases["twins_s"] = time.perf_counter() - t0
+    twin_launches = read_launches()
+    check(twin_launches["full_reorder"] >= 4, f"the twin phase launched the greedy kernel {twin_launches['full_reorder']} "
+                                              f"times, expected at least 4")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1589,7 +1733,8 @@ def main() -> int:
     bytes_ms = (c * w * 4 + c * 4) / H100_BYTES_PER_S * 1e3
     ops_ms = 3 * c * w / H100_FP32_OPS_PER_S * 1e3
     report["segment_rf"].update(
-        shape=[c, w], ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
+        shape=[c, w], ms=graph_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
+        wrapper_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows16), 50),
         plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows16), 20),
         bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=None,
         other_shapes=[stream_twins.pop("segment_rf_rows"), rows_timing(rungs_rf.pop("widest"), segment_rf)],
@@ -1609,8 +1754,8 @@ def main() -> int:
               f"segment_rf parity failed on path 6 (b)'s {name} rows")
         report["segment_rf"]["streamrank_rows"][name] = rows_timing(rows, segment_rf)
         t = report["segment_rf"]["streamrank_rows"][name]
-        log(f"segment_rf at path 6 (b)'s {name} rows {t['shape']}: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"bound {t['bound_ms']:.4f} ms")
+        log(f"segment_rf at path 6 (b)'s {name} rows {t['shape']}: {t['ms']:.4f} ms on the card, "
+            f"{t['wrapper_ms']:.4f} ms a wrapper call, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
         del rows
 
     spmv_times = []
@@ -1712,6 +1857,16 @@ def main() -> int:
         f"({partials_kv_read} B of K/V: V of every tile)")
     del dec_q, dec_k, dec_v, mask3, mask4, q4, k4, v4
 
+    greedy = stream_twins["greedy"]
+    report["full_reorder"].update(
+        shape=[greedy["slots"], greedy["vertices"]], ms=greedy["ms"], plain_ms=greedy["plain_ms"],
+        bound_ms=greedy["bound_ms"], bound_by=greedy["bound_by"], library_ms=None,
+        **{key: greedy[key] for key in ("steps", "us_per_step", "enqueue_ms", "order_ms", "mirror_ms", "walked")},
+        wide=stream_twins["greedy_wide"])
+    rs = report["segment_rf"]
+    log(f"segment_rf at {rs['shape']}: {rs['ms']:.4f} ms on the card, {rs['wrapper_ms']:.4f} ms a wrapper call; "
+        + "; ".join(f"{t['shape']}: {t['ms']:.4f} / {t['wrapper_ms']:.4f} ms"
+                    for t in rs["other_shapes"] + [rs["multirank_rows"], *rs["streamrank_rows"].values()]))
     phases = {k: round(x, 6) for k, x in phases.items()}
     log(json.dumps({"phases": phases, "graph": {"scale": args.scale, "edge_factor": args.edge_factor,
                                                 "num_vertices": v, "num_edges": n}}))
@@ -1720,16 +1875,20 @@ def main() -> int:
         "edge_spmv": "src/repro/kernels/edge_spmv.py:52",
         "flash_attention": "src/repro/kernels/flash_attention.py:117",
         "decode_attention": "src/repro/kernels/decode_attention.py:76",
+        "full_reorder": "src/repro/kernels/full_reorder.py:231",
     }
-    launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_}}
+    launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_},
+                "full_reorder": rungs_launches["full_reorder"]}
     by_path = {"slice1": slice1_launches, "slice2": slice2_launches, "stream": stream_launches,
-               "rungs": rungs_launches}
+               "rungs": rungs_launches, "twins": twin_launches}
     for tag, read in multirank_read.items():  # path 5: each rank's own launches, counted from 0 in its process
         by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
         report["segment_rf"][f"multirank_{tag}_by_rank"] = read["segment_rf_launches"]
     for tag, read in streamrank_read.items():  # path 6: the same
-        by_path[f"streamrank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
+        by_path[f"streamrank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
+                                        "full_reorder": sum(read["greedy_launches"])}
         report["segment_rf"][f"streamrank_{tag}_by_rank"] = read["segment_rf_launches"]
+        report["full_reorder"][f"streamrank_{tag}_by_rank"] = read["greedy_launches"]
     log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
     log(json.dumps({"multirank": multirank_read}))
     log(json.dumps({"streamrank": streamrank_read}))
@@ -1743,7 +1902,7 @@ def main() -> int:
             "replaces": sources[name],
             "launches": launches[name],
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-            "parity": "exact" if name == "segment_rf" else "allclose",
+            "parity": "exact" if name in ("segment_rf", "full_reorder") else "allclose",
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -1753,8 +1912,9 @@ def main() -> int:
             "shape": r["shape"],
             **({"tc_launches": slice2_tc} if name == "flash_attention" else {}),
             **({"merge_launches": slice2_merges} if name == "decode_attention" else {}),
-            **{key: r[key] for key in ("partials_ms", "sdpa_3d_mask_ms", "sdpa_4d_bool_mask_ms", "kernel_bytes",
-                                       "kernel_tb_per_s") if key in r},
+            **{key: r[key] for key in ("wrapper_ms", "partials_ms", "sdpa_3d_mask_ms", "sdpa_4d_bool_mask_ms",
+                                       "kernel_bytes", "kernel_tb_per_s", "steps", "us_per_step", "enqueue_ms",
+                                       "order_ms", "mirror_ms", "walked", "wide") if key in r},
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),

@@ -21,12 +21,16 @@ Algorithm 4):
    int32 max and sort last, so the permutation is live-first.
 
 The JAX twin runs the steps in a ``while_loop`` whose condition is data on
-the device. Here each step is a handful of torch ops enqueued from the host,
-so reading that condition would cost a device→host round trip per step.
-Instead ``full_order_device`` takes ``steps``, the step count T of the host
-mirror (which the engine always runs first: ``_select_full_order_host``), and
-enqueues exactly T steps with no synchronize. A step after every live edge is
-ordered changes no key (every degree is 0 then, so no edge is picked).
+the device. Here a CUDA tensor takes the hand-written kernel
+``csrc/full_reorder.cu``: the live incidence list is built with torch ops
+(``incidence_device``), one launch runs every step on the card, evaluating
+the twin's condition ``(t < nv) & (i < e_live)`` itself, and writes the
+four keys and its step count (``greedy_keys``); the 5-key sort finishes on
+the card. Nothing is read back. A CPU tensor takes the plain version
+``full_order_device_torch``, the step loop as torch ops, which enqueues
+exactly ``steps`` steps: the host mirror's step count (a step after every
+live edge is ordered changes no key, since every degree is 0 then).
+``launches`` counts the kernel's launches.
 
 Candidate selection (``select_full_order_*``) scores the greedy order and a
 caller-supplied candidate by the span objective at whole-graph scope; the
@@ -38,6 +42,7 @@ overflow int32, so the two never diverge by wraparound.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
@@ -45,6 +50,7 @@ import torch
 
 from ..compat import PAD_ID
 from ..core import ordering
+from . import _build
 from .span_reorder import (
     _lexsort_device,
     eval_ks,
@@ -60,6 +66,10 @@ __all__ = [
     "eval_ks_full",
     "full_order_host",
     "full_order_device",
+    "full_order_device_torch",
+    "greedy_keys",
+    "incidence_device",
+    "launches",
     "full_objective_host",
     "full_objective_device",
     "select_full_order_host",
@@ -68,6 +78,8 @@ __all__ = [
 ]
 
 _PAD = int(PAD_ID)  # int32 max — dead-slot sort key
+launches = 0  # launches of the greedy kernel since import (or a reset)
+_greedy_fns = None  # (greedy, state_bytes): the C entry points, their ctypes signatures set once
 
 
 def greedy_fits_int32(num_edges: int, k_min: int, k_max: int, max_degree: int) -> bool:
@@ -255,16 +267,12 @@ def full_order_host(
 
 
 # ------------------------------------------------------------- device (torch)
-def full_order_device(
+def full_order_device_torch(
     u, v, valid, num_vertices: int, alpha, beta, delta, permpos, *, steps: int
 ) -> torch.Tensor:
-    """Device twin of ``full_order_host``. ``u``/``v`` int32 (cap,), ``valid``
-    bool (cap,), ``permpos`` int32 (|V|,), all on one device; ``alpha``,
-    ``beta``, ``delta`` Python ints or 0-d int32 tensors there. Returns the
-    (cap,) int64 permutation, live slots first.
-
-    ``steps`` is the greedy's step count (the host mirror's): exactly that
-    many steps are enqueued and nothing is read back."""
+    """Plain version of ``full_order_device``: the step loop as torch ops,
+    ``steps`` steps enqueued (the host mirror's count) and nothing read back.
+    What a CPU tensor runs."""
     cap = u.shape[0]
     nv = int(num_vertices)
     dev = u.device
@@ -342,6 +350,101 @@ def full_order_device(
     # The 5-key sort (step, phase, ka, kb, slot) — the whole-graph twin of the
     # span kernel's finish.
     return _lexsort_device((step, phase, ka, kb))
+
+
+def incidence_device(u, v, valid, num_vertices: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_incidence`` with torch ops and no host read: ``(ptr, slots)``, both
+    int32, the live slots incident to vertex w at ``slots[ptr[w]:ptr[w+1]]``,
+    ascending. ``slots`` keeps 2·cap entries: those past ``ptr[nv]`` are the
+    dead slots' (keyed to vertex nv, so they sort last)."""
+    nv = int(num_vertices)
+    cap = u.shape[0]
+    valid = valid.bool()
+    ends = torch.cat([torch.where(valid, u.to(torch.int32), nv), torch.where(valid, v.to(torch.int32), nv)])
+    by_vertex = torch.argsort(ends, stable=True)
+    w = torch.arange(nv + 1, dtype=torch.int32, device=u.device)
+    ptr = torch.searchsorted(ends[by_vertex], w, out_int32=True)
+    return ptr, (by_vertex % cap).to(torch.int32)  # entry j of the concatenation is slot j mod cap
+
+
+def _kernel():
+    """``(greedy, state_bytes)`` of the built library, with their ctypes
+    signatures set where it is first loaded."""
+    global _greedy_fns
+    if _greedy_fns is None:
+        lib = _build.load("full_reorder")
+        greedy, state = lib.full_reorder_greedy, lib.full_reorder_state_bytes
+        greedy.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        greedy.restype = ctypes.c_int
+        state.argtypes = [ctypes.c_int]
+        state.restype = ctypes.c_longlong
+        _greedy_fns = greedy, state
+    return _greedy_fns
+
+
+def greedy_keys(u, v, valid, num_vertices: int, alpha: int, beta: int, delta: int, permpos):
+    """The greedy kernel on CUDA tensors: ``(keys, steps, work)`` — keys
+    ``(4, cap)`` int32, the rows (step, phase, key_a, key_b) of every slot
+    (int32 max for a slot left unordered); ``steps`` ``(1,)`` int32, the steps
+    the kernel ran (the twin's ``while_loop`` count); ``work`` ``(2,)`` int64,
+    the incidence entries its walks read and its fallback steps. ``u``/``v``
+    int32 and ``valid`` bool ``(cap,)``, ``permpos`` int32 ``(|V|,)``, all
+    contiguous and on one CUDA device; ``alpha``, ``beta``, ``delta`` ints.
+    One kernel launch, after the incidence list's torch ops; nothing is read
+    back."""
+    global launches
+    cap, nv = u.shape[0], int(num_vertices)
+    for name, t, dtype, n in (("u", u, torch.int32, cap), ("v", v, torch.int32, cap),
+                              ("valid", valid, torch.bool, cap), ("permpos", permpos, torch.int32, nv)):
+        if t.dtype != dtype or t.dim() != 1 or t.shape[0] != n:
+            raise TypeError(f"greedy_keys: {name} must be a ({n},) {dtype} tensor, got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"greedy_keys: {name} must be contiguous")
+        if t.device != u.device or t.device.type != "cuda":
+            raise ValueError(f"greedy_keys: every input must lie on one CUDA device, got {name} on {t.device}")
+    if not 0 < nv < 2**31 - 32 or not 0 < cap < 2**30:
+        raise ValueError(f"greedy_keys takes 0 < |V| < 2**31 - 32 and 0 < cap < 2**30, got {nv} and {cap}")
+    dev = u.device
+    greedy, state_bytes = _kernel()
+    with torch.cuda.device(dev):
+        need = state_bytes(nv)
+        if need < 0:
+            _build.check_launch("full_reorder", int(-need))
+        ptr, inc = incidence_device(u, v, valid, nv)
+        done = (~valid).to(torch.uint8)
+        keys = torch.full((4, cap), _PAD, dtype=torch.int32, device=dev)
+        frontier = torch.empty(nv, dtype=torch.int32, device=dev)
+        th = torch.empty((cap, 4), dtype=torch.int32, device=dev)
+        state = torch.empty(max(1, need), dtype=torch.uint8, device=dev)
+        steps = torch.empty(1, dtype=torch.int32, device=dev)
+        work = torch.empty(2, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = greedy(u.data_ptr(), v.data_ptr(), done.data_ptr(), ptr.data_ptr(), inc.data_ptr(), permpos.data_ptr(),
+                     keys.data_ptr(), frontier.data_ptr(), th.data_ptr(), state.data_ptr(), steps.data_ptr(),
+                     work.data_ptr(), cap, nv, int(alpha), int(beta), int(delta), stream)
+    _build.check_launch("full_reorder", err)
+    launches += 1
+    return keys, steps, work
+
+
+def full_order_device(
+    u, v, valid, num_vertices: int, alpha, beta, delta, permpos, *, steps: int
+) -> torch.Tensor:
+    """Device twin of ``full_order_host``. ``u``/``v`` int32 (cap,), ``valid``
+    bool (cap,), ``permpos`` int32 (|V|,), all on one device; ``alpha``,
+    ``beta``, ``delta`` Python ints (a 0-d tensor is read on the host).
+    Returns the (cap,) int64 permutation, live slots first.
+
+    On a CUDA device: the greedy kernel (``greedy_keys``: one launch, its own
+    step count), then the 5-key sort (step, phase, ka, kb, slot) on the card.
+    On the CPU: the plain version, which runs ``steps`` steps (the host
+    mirror's count). Nothing is read back."""
+    if u.device.type == "cpu":
+        return full_order_device_torch(u, v, valid, num_vertices, alpha, beta, delta, permpos, steps=steps)
+    if u.device.type != "cuda":
+        raise ValueError(f"full_order_device runs on CUDA or CPU tensors, got {u.device}")
+    keys, _, _ = greedy_keys(u, v, valid, num_vertices, int(alpha), int(beta), int(delta), permpos)
+    return _lexsort_device(tuple(keys))
 
 
 # ------------------------------------------------------- objective + selection

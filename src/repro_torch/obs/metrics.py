@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import os
 import resource
 import sys
 
@@ -39,6 +40,7 @@ __all__ = [
     "NullRegistry",
     "NULL",
     "peak_rss_mb",
+    "read_peak_rss",
     "record_process_gauge",
     "record_peak_rss",
 ]
@@ -262,12 +264,46 @@ class NullRegistry:
 NULL = NullRegistry()
 
 
+_STATUS = "/proc/self/status"
+_vmrss_peak = (0, 0.0)  # (pid, MB): the largest VmRSS read in process pid
+
+
+def read_peak_rss(status_text: str | None = None) -> tuple[str, float]:
+    """``(field, MB)``: the peak resident set of THIS process.
+
+    * ``VmHWM`` of ``/proc/self/status`` where the kernel reports it: the
+      peak of this process's own address space, which ``exec`` starts anew.
+    * Otherwise ``VmRSS``, as the largest value read in this process: every
+      call (and every ``peak_rss_mb`` / ``record_peak_rss``) updates the
+      running maximum, so a caller that reads after each phase sees the
+      phases' peak. The maximum is kept by pid, so a forked child starts its
+      own.
+    * ``ru_maxrss`` only where there is no ``/proc`` (macOS): Linux carries
+      it across ``fork`` and ``exec``, so a launched rank would report its
+      launcher's peak whenever that is the larger.
+
+    ``status_text`` stands in for the file's text (tests)."""
+    global _vmrss_peak
+    if status_text is None:
+        try:
+            with open(_STATUS) as f:
+                status_text = f.read()
+        except OSError:
+            peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            return "ru_maxrss", peak / (1024.0 * 1024.0 if sys.platform == "darwin" else 1024.0)
+    fields = dict(line.split(":", 1) for line in status_text.splitlines() if ":" in line)
+    if "VmHWM" in fields:
+        return "VmHWM", int(fields["VmHWM"].split()[0]) / 1024.0
+    now = int(fields["VmRSS"].split()[0]) / 1024.0
+    pid = os.getpid()
+    peak = max(now, _vmrss_peak[1]) if _vmrss_peak[0] == pid else now
+    _vmrss_peak = (pid, peak)
+    return "VmRSS", peak
+
+
 def peak_rss_mb() -> float:
-    """Peak resident-set size of THIS process in MB (ru_maxrss; kilobytes on
-    Linux, bytes on macOS)."""
-    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-    scale = 1024.0 * 1024.0 if sys.platform == "darwin" else 1024.0
-    return peak / scale
+    """Peak resident-set size of THIS process in MB (``read_peak_rss``)."""
+    return read_peak_rss()[1]
 
 
 def record_process_gauge(value: float, registry, name: str, *, process_index: int, process_count: int) -> float:

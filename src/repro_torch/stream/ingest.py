@@ -159,6 +159,10 @@ class StreamingEngine:
     ``"pack"`` packs the host slot arrays and uploads this rank's rows (no
     collective); ``"stream"`` streams them region by region through
     ``pack_slots_sharded_stream`` (``from_restored``).
+
+    Unlike the reference, it takes no ``warm_scatter_caps``: the reference
+    compiles its scatter programs ahead for those capacities, and the port's
+    programs are torch ops with nothing to compile.
     """
 
     def __init__(

@@ -7,7 +7,7 @@ import pytest
 
 from repro_torch.kernels import _build
 
-NAMES = ["segment_rf", "edge_spmv", "flash_attention", "decode_attention"]
+NAMES = ["segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder"]
 
 
 @pytest.fixture

@@ -29,8 +29,15 @@ from repro_torch.launch import sharding as SH
 
 pytestmark = pytest.mark.cuda
 
+# The parity cases of tests/test_kernels.py and edge cases; the five row
+# shapes the paths count ((16, 1,962,714) the k = 16 pack, (4, 1,962,714) a
+# rank's rows of it, (3, 2,944,512) path 3's span keys, (3, 798,720) and
+# (2, 161,792) the full rung's and a span's keys over ranks); W % 4 of 1, 2
+# and 3 (rows that start off a 16-byte boundary), W < 4 and C = 1.
 SHAPES = [(4, 8), (16, 64), (7, 40), (33, 24), (13, 1000), (9, 4097), (5, 1), (1, 3 * 4096 + 1),
-          (128, 240_000), (4, 7_500_000)]
+          (128, 240_000), (4, 7_500_000),
+          (16, 1_962_714), (4, 1_962_714), (3, 2_944_512), (3, 798_720), (2, 161_792),
+          (5, 40_002), (6, 40_003), (3, 2), (4, 3), (1, 1000), (1, 161_793)]
 
 
 @pytest.fixture
@@ -52,8 +59,8 @@ def _rows(c, w, seed):
     rows = np.sort(rng.integers(0, 3 * w, size=(c, w)).astype(np.int32), axis=1)
     n_valid = rng.integers(0, w + 1, size=c)
     rows[np.arange(w)[None, :] >= n_valid[:, None]] = PAD_ID
-    rows[0] = PAD_ID  # an all-PAD row
-    if c > 1:
+    if c >= 3:  # fewer rows stay random
+        rows[0] = PAD_ID  # an all-PAD row
         rows[1] = 7  # a single distinct id
     return rows
 
@@ -70,6 +77,17 @@ def test_kernel_matches_plain_version(cuda, c, w):
     assert torch.equal(got, segment_rf.segment_distinct_counts_torch(t))
     if c * w <= 1 << 16:
         assert np.array_equal(got.cpu().numpy(), ref.segment_distinct_counts_ref(rows, PAD_ID))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_kernel_takes_views_off_a_16_byte_boundary(cuda, offset):
+    """A contiguous view whose data starts 4, 8 or 12 bytes past a 16-byte
+    boundary: every row takes the kernel's scalar head."""
+    rows = _rows(3, 40_000, seed=offset)
+    buf = torch.full((rows.size + offset,), -5, dtype=torch.int32, device=cuda)
+    t = buf[offset:].view(rows.shape)
+    t.copy_(torch.from_numpy(rows).to(cuda))
+    assert torch.equal(segment_rf.segment_distinct_counts(t), segment_rf.segment_distinct_counts_torch(t))
 
 
 @pytest.mark.parametrize("bad", [torch.int64, "non-contiguous"])
@@ -520,6 +538,68 @@ def test_stream_select_launches_segment_rf_twice(cuda):
                                  use_pallas=True, steps=steps)
     torch.cuda.synchronize()
     assert segment_rf.launches == before + 4
+
+
+def _path4_slots():
+    """Path 4's size: RMAT-14 (edge factor 16) as live slots, objective k in [4, 32]."""
+    g = rmat_graph(14, 16, seed=0)
+    return g.src.astype(np.int64), g.dst.astype(np.int64), np.ones(g.num_edges, bool), g.num_vertices
+
+
+@pytest.mark.parametrize("stream", ["default", "side"])
+@pytest.mark.parametrize("case", ["drifted", "star", "ring", "path4"])
+def test_greedy_kernel_equals_mirror(cuda, case, stream):
+    """The greedy kernel, one launch, against the host mirror: the same
+    permutation and the mirror's step count, on the default stream and on a
+    side stream (where the async rebuild launches it)."""
+    from repro_torch.kernels import full_reorder as FRK
+
+    u, v, valid, nv = _path4_slots() if case == "path4" else _stream_slots(case)
+    k_max = 32 if case == "path4" else 128
+    n = int(valid.sum())
+    deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
+    alpha, beta, delta = FRK.greedy_params(n, 4, k_max, int(deg.max()))
+    permpos = FRK.fallback_positions(nv)
+    host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
+    ut, vt = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (u, v))
+    vd = torch.from_numpy(valid).to(cuda)
+    pt = torch.from_numpy(permpos.astype(np.int32)).to(cuda)
+    side = torch.cuda.Stream() if stream == "side" else torch.cuda.current_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = FRK.launches
+    with torch.cuda.stream(side):
+        keys, kernel_steps, work = FRK.greedy_keys(ut, vt, vd, nv, alpha, beta, delta, pt)
+        perm = FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, steps=0)  # steps: CPU only
+    torch.cuda.synchronize()
+    assert FRK.launches == before + 2
+    assert int(kernel_steps[0]) == steps and int(work[0]) > 0
+    np.testing.assert_array_equal(perm.cpu().numpy(), host)
+    slot = np.arange(len(u))
+    k = keys.cpu().numpy()
+    np.testing.assert_array_equal(np.lexsort((slot, k[3], k[2], k[1], k[0])), host)
+
+
+@pytest.mark.parametrize("bad", ["int64", "non-contiguous", "valid-uint8", "permpos-short"])
+def test_greedy_wrapper_rejects_bad_input(cuda, bad):
+    from repro_torch.kernels import full_reorder as FRK
+
+    u, v, valid, nv = _stream_slots("ring")
+    ut, vt = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (u, v))
+    vd = torch.from_numpy(valid).to(cuda)
+    pt = torch.from_numpy(FRK.fallback_positions(nv).astype(np.int32)).to(cuda)
+    exc = ValueError if bad == "non-contiguous" else TypeError
+    if bad == "int64":
+        ut = ut.long()
+    elif bad == "non-contiguous":
+        ut = torch.stack([ut, ut], dim=1)[:, 0]
+    elif bad == "valid-uint8":
+        vd = vd.to(torch.uint8)
+    else:
+        pt = pt[:-1]
+    before = FRK.launches
+    with pytest.raises(exc):
+        FRK.greedy_keys(ut, vt, vd, nv, 3, 1, 2, pt)
+    assert FRK.launches == before
 
 
 @pytest.mark.parametrize("span_repair,full_rebuild", [("device", "device"), ("differential", "differential"),

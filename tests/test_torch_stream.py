@@ -15,6 +15,7 @@
 Tolerance: exact everywhere, except PageRank on the stream pack (rtol 1e-5,
 atol 1e-7: f32 scatter-adds in another order, as in tests/test_torch_engine.py).
 """
+import collections
 import dataclasses
 import logging
 
@@ -306,6 +307,170 @@ def test_chunk_keys_raise_where_int32_would_wrap():
     with pytest.raises(ValueError, match="overflow int32"):  # the objective checks before building keys
         SRK.span_objective_device(z, z, torch.ones(4, dtype=torch.bool), torch.arange(4), torch.tensor(4),
                                   (2**28,), use_pallas=True)
+
+
+# ------------------------------------------------------ the greedy's CUDA kernel
+def _greedy_features_case():
+    """A small graph with what the kernel must get right: triangles (slots
+    with both ends in a frontier), a hub of degree 40 whose spokes are also
+    joined in pairs, and separate pieces (the permpos fallback starts each),
+    plus two dead slots."""
+    edges = [(0, 1), (0, 2), (1, 2), (2, 3), (3, 4), (2, 4), (10, 11), (11, 12), (10, 12), (20, 21)]
+    edges += [(30, 31 + k) for k in range(40)] + [(31, 32), (33, 34), (35, 36), (50, 51), (60, 61)]
+    e = np.array(edges, np.int64)
+    valid = np.ones(len(e), bool)
+    valid[[10, 25]] = False
+    return e[:, 0] * valid, e[:, 1] * valid, valid, 80
+
+
+EMULATION_CASES = CASES + ["features"]
+
+
+def _emulation_inputs(case: str):
+    return _greedy_features_case() if case == "features" else _twin_inputs(case)
+
+
+def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch):
+    """The per-step algorithm of ``csrc/full_reorder.cu``, step for step, in
+    numpy: the packed-key argmin (and the permpos fallback), the one-hop walk
+    over v_min's incidence entries, the two-hop walk flattened over prefix
+    sums of each frontier batch's list lengths (``batch`` vertices at a time;
+    the kernel's is its block size) with a binary search for the owning
+    vertex, the "both ends in the frontier: take from the u side" rule, and
+    the two-hop's slots collected before any write of M (the kernel's
+    barrier). Returns the keys, the step count and what the steps met."""
+    ptr, inc = (x.numpy().astype(np.int64) for x in FRK.incidence_device(_t(u), _t(v), torch.from_numpy(valid), nv))
+    u, v = np.asarray(u, np.int64), np.asarray(v, np.int64)
+    cap = len(u)
+    d = np.diff(ptr).copy()
+    m = np.zeros(nv, np.int64)
+    touched = np.zeros(nv, bool)
+    selected = np.zeros(nv, bool)
+    fr = np.zeros(nv, bool)
+    done = ~valid.copy()
+    keys = np.full((4, cap), 2**31 - 1, np.int64)
+    e_live = ptr[nv] // 2
+    met = dict(ties=0, fallbacks=0, both_in_frontier=0, max_list=0)
+    t = i = 0
+    while t < nv and i < e_live:
+        cand = np.flatnonzero((d > 0) & touched & ~selected)
+        if cand.size:
+            pri = alpha * d[cand] - beta * m[cand]
+            biased = ((pri.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint64)
+            packed = biased << np.uint64(32) | cand.astype(np.uint64)  # argmin's first index on ties
+            vmin = int(cand[np.argmin(packed)])
+            met["ties"] += int((pri == pri.min()).sum() > 1)
+        else:
+            elig = np.flatnonzero((d > 0) & ~selected)
+            vmin = int(elig[np.argmin(permpos[elig] << 32 | elig)]) if elig.size else 0
+            met["fallbacks"] += 1
+        frontier, n1 = [], 0
+        for j in range(ptr[vmin], ptr[vmin + 1]):  # one-hop
+            s = inc[j]
+            if done[s]:
+                continue
+            n1 += 1
+            other = v[s] if u[s] == vmin else u[s]
+            keys[:, s] = (t, 0, other, 0)
+            d[other] -= 1
+            done[s] = True
+            if not fr[other]:
+                fr[other] = True
+                frontier.append(other)
+        i1 = i + n1
+        m[frontier] = i1
+        touched[frontier] = True
+        touched[vmin] = selected[vmin] = True
+        d[vmin] = 0
+        th = []
+        if n1 > 0:  # two-hop: collected first, written after the barrier
+            for f0 in range(0, len(frontier), batch):
+                fb = np.asarray(frontier[f0:f0 + batch])
+                lens = ptr[fb + 1] - ptr[fb]
+                met["max_list"] = max(met["max_list"], int(lens.max()))
+                foff = np.concatenate([[0], np.cumsum(lens)])
+                for w in range(foff[-1]):
+                    a = int(np.searchsorted(foff, w, side="right")) - 1  # s_foff[a] <= w < s_foff[a + 1]
+                    s = inc[ptr[fb[a]] + w - foff[a]]
+                    if done[s]:
+                        continue
+                    u_in = fr[u[s]]
+                    met["both_in_frontier"] += int(u_in and fr[v[s]])
+                    tu = u[s] if u_in else v[s]
+                    if tu != fb[a]:
+                        continue  # both ends in the frontier: taken from the u side
+                    wo = v[s] if u_in else u[s]
+                    if touched[wo] and not selected[wo] and m[wo] > 0 and i1 - m[wo] <= delta and wo != vmin:
+                        th.append((s, tu, wo))
+        i2 = i1 + len(th)
+        for s, tu, wo in th:
+            keys[:, s] = (t, 1, tu, wo)
+            d[tu] -= 1
+            d[wo] -= 1
+            m[tu] = m[wo] = i2
+            done[s] = True
+        fr[frontier] = False
+        i, t = i2, t + 1
+    return keys, t, met
+
+
+@pytest.mark.parametrize("case", EMULATION_CASES)
+def test_incidence_device_equals_host_incidence(case):
+    u, v, valid, nv = _emulation_inputs(case)
+    ptr, slots = FRK._incidence(np.asarray(u, np.int64), np.asarray(v, np.int64), valid, nv)
+    got_ptr, got_slots = FRK.incidence_device(_t(u), _t(v), torch.from_numpy(valid), nv)
+    assert got_ptr.dtype == got_slots.dtype == torch.int32 and got_slots.shape == (2 * len(u),)
+    np.testing.assert_array_equal(got_ptr.numpy(), ptr)
+    np.testing.assert_array_equal(got_slots.numpy()[: ptr[nv]], slots)
+    assert set(got_slots.numpy()[ptr[nv]:].tolist()) <= set(np.flatnonzero(~valid).tolist())  # dead slots last
+
+
+@pytest.mark.parametrize("batch", [2, 1024], ids=["batch2", "batch1024"])
+@pytest.mark.parametrize("case", EMULATION_CASES)
+def test_kernel_emulation_equals_host_mirror(case, batch):
+    u, v, valid, nv = _emulation_inputs(case)
+    alpha, beta, delta, permpos = _greedy_args(u, v, valid, nv)
+    host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
+    keys, kernel_steps, _ = _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch)
+    assert kernel_steps == steps
+    np.testing.assert_array_equal(np.lexsort((np.arange(len(u)), *keys[::-1])), host)
+
+
+def test_kernel_emulation_cases_cover_ties_fallbacks_hubs_and_shared_frontier_slots():
+    """Across the cases the emulated steps meet a priority tie, more than one
+    fallback start (separate pieces), a hub's long list in a frontier and a
+    slot with both ends in the frontier."""
+    met = collections.Counter()
+    for case in EMULATION_CASES:
+        u, v, valid, nv = _emulation_inputs(case)
+        alpha, beta, delta, permpos = _greedy_args(u, v, valid, nv)
+        one = _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, 1024)[2]
+        met.update({k: x for k, x in one.items() if k != "max_list"})
+        met["max_list"] = max(met["max_list"], one["max_list"])
+    assert met["ties"] > 0 and met["fallbacks"] > 1 and met["both_in_frontier"] > 0 and met["max_list"] >= 30
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_full_order_device_on_cpu_launches_nothing(case):
+    u, v, valid, nv = _twin_inputs(case)
+    alpha, beta, delta, permpos = _greedy_args(u, v, valid, nv)
+    host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
+    want = np.asarray(J_FRK.full_order_device(
+        u.astype(np.int32), v.astype(np.int32), valid, nv,
+        np.int32(alpha), np.int32(beta), np.int32(delta), permpos.astype(np.int32)))
+    before = FRK.launches
+    got = FRK.full_order_device(_t(u), _t(v), torch.from_numpy(valid), nv, alpha, beta, delta, _t(permpos),
+                                steps=steps).numpy()
+    assert FRK.launches == before
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, host)
+
+
+def test_greedy_kernel_wrapper_takes_cuda_tensors_only():
+    """The kernel route never runs the plain version: on CPU tensors it raises."""
+    u, v, valid, nv = _twin_inputs("ring")
+    with pytest.raises(ValueError, match="CUDA"):
+        FRK.greedy_keys(_t(u), _t(v), torch.from_numpy(valid), nv, 3, 1, 2, _t(FRK.fallback_positions(nv)))
 
 
 # ----------------------------------------------------------------- engine pack
