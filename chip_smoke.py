@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
     python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
-    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c) and path 6 (c) only
+    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c), path 6 (c) and path 7 (c) only
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -124,7 +124,25 @@ Phases, in order; any failure raises and the script exits nonzero:
    RSS; the parent holds the ranks' ladders, logs and rescale counts equal
    and the bytes sent and received to the cross-rank bytes, and launches
    nothing. ``--cards 4`` runs (c): (a) and (b) over NCCL, a card a rank;
-11. each kernel's time (CUDA events) beside its bound, the plain version's
+11. path 7, the out-of-core pipeline (``--oc-worker``) over the same 4 gloo
+   ranks on the one card: a stateless RMAT plan of scale 17 in 4 shards,
+   each rank regenerating what it needs; (A) a stride-2 sample's locality
+   rank, each rank's shards' chunk-load histogram summed by ``psum_host``,
+   16 chunk splits; (B) the commit at k = 8 through
+   ``pack_slots_sharded_stream``, one chunk materialized at a time and
+   ordered on the card (``order_edge_block``, chunk mode "device": one launch
+   of the greedy kernel a chunk); (C) rescales 8 -> 12 -> 8 re-checked
+   through ``segment_rf``; (D) the spill-bounded ingest of 6 batches. The
+   parent computes the in-core oracle with every chunk on the greedy's host
+   mirror while the ranks run, and holds the reassembled commit byte-equal to
+   it, each rank's greedy launches equal to its blocks inside the int32
+   bound, the re-checked RF equal to the oracle's, the round trip and the
+   k = 12 sequence, and the ranks' stream phases equal and within their
+   resident bound; each chunk's greedy time, steps and state branch, the
+   bytes of the rescales, peak RSS by rank and the RF ratio to host
+   ``geo_order`` are readings. ``--cards 4`` runs (c): the same over NCCL,
+   a card a rank;
+12. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes; ``segment_rf`` on the card alone
    (calls captured in a CUDA graph) and as a caller pays it (back-to-back
@@ -140,7 +158,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
-``{"streamrank": ...}`` line of path 6's, then the card line, one ``{"kernels": [...]}`` JSON line
+``{"streamrank": ...}`` line of path 6's, an ``{"outofcore": ...}`` line of
+path 7's, then the card line, one ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
 prints no result.
@@ -228,6 +247,22 @@ STREAMRANK_B = dict(regions=RUNGS_REGIONS, batch=RUNGS_BATCH, seed=3, span_repai
                     config=dict(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=RUNGS_K_MAX),
                     steps=["batch", "force", "batch", "force", RUNGS_REGIONS + 2, "batch", "batch"])
 STREAMRANK_TIMEOUT_S = 900.0
+# Path 7, the out-of-core pipeline: the JAX package's harness
+# (tests/outofcore_harness.py) at a larger scale, with every chunk ordered on
+# the card (chunk mode "device"): a stateless RMAT plan of scale 17, edge
+# factor 16 (2,096,989 candidate edges), 4 shards, a stride-2 locality sample,
+# chunks of at most 2**17 edges (16 chunks), no seam repair, packs at k = 8
+# and rescales 8 -> 12 -> 8, then the spill-bounded stream of
+# tests/torch_outofcore_harness.py (6 batches of 256 inserts, 64 regions of
+# 128 slots, 8 resident). Cut from the JAX package's benchmark scale 19,
+# edge factor 17 (benchmarks/bench_outofcore.py) for the smoke's time limit;
+# that benchmark's 2**20-edge chunks would break the greedy's int32 priority
+# bound, so its device mode would order every chunk on the host and launch no
+# kernel. Here every chunk fits the bound at k in [4, 128].
+OC_PLAN = dict(scale=17, edge_factor=16, seed=0, num_shards=4)
+OC_CFG = dict(num_chunks=4, max_chunk_edges=1 << 17, seam_window=0, seed=0, chunk_mode="device")
+OC_STRIDE, OC_RF_KS = 2, (4, 8, 16, 32, 64, 128)
+OC_TIMEOUT_S = 600.0
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -1191,15 +1226,307 @@ def streamrank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, de
     return out
 
 
+def greedy_fits_block(FRK, block: np.ndarray, k_min: int, k_max: int) -> bool:
+    """Whether ``order_edge_block`` in the device chunk mode sends this block
+    to the greedy kernel: two rows or more, and the int32 priority bound of
+    its compacted unique edges holds (else host ``geo_order`` orders it)."""
+    if block.shape[0] <= 1:
+        return False
+    uniq = np.unique(block, axis=0)
+    deg = np.bincount(np.searchsorted(np.unique(block), uniq).ravel())
+    return FRK.greedy_fits_int32(uniq.shape[0], k_min, k_max, int(deg.max()))
+
+
+def outofcore_worker(run_dir: pathlib.Path) -> int:
+    """One rank of path 7 (``--oc-worker``, started by ``outofcore_path``
+    through ``launch_local_cluster``): the phases of
+    ``tests/torch_outofcore_harness.py`` at the run's plan, every chunk
+    ordered on the rank's card. A: the sample, ``locality_rank``, this rank's
+    shards' ``chunk_load``, ``psum_host``, ``chunk_splits``; B: the commit
+    through ``pack_slots_sharded_stream``, one chunk materialized at a time;
+    C: ``ElasticRescaler.execute`` 8 -> 12 -> 8, both re-checked through
+    ``segment_rf``; D: the spill-bounded ingest, ``OutOfCoreIngestor.ingest``
+    called directly (the JAX package routes it through its elastic
+    controller, which the port does not have yet). Every greedy launch is
+    timed with CUDA events and every ``segment_rf`` launch tapped and held
+    against the plain version afterwards. Writes ``rank{r}.npz`` (its row
+    blocks) and ``rank{r}.json`` (readings)."""
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    import torch.distributed as dist
+    import torch_outofcore_harness as OH
+
+    from repro_torch.core import cep
+    from repro_torch.core import hier_order as HO
+    from repro_torch.data import shards as DS
+    from repro_torch.elastic.rescale_exec import ElasticRescaler
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import segment_rf
+    from repro_torch.launch import multihost as MH
+    from repro_torch.obs import metrics as OM
+
+    cfg = json.loads((run_dir / "config.json").read_text())
+    group = MH.initialize_from_env(timeout_s=cfg["timeout_s"])
+    r, dev = group.rank, group.torch_device
+    plan, hcfg = DS.RmatShardPlan(**cfg["plan"]), HO.HierConfig(**cfg["hier"])
+    rf_kernel, rf_tapped = segment_rf.segment_distinct_counts, []
+
+    def rf_tap(rows):
+        counts = rf_kernel(rows)
+        rf_tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    segment_rf.segment_distinct_counts = rf_tap  # ops looks it up at each call
+    greedy_kernel, blocks, wall, rss = FRK.greedy_keys, [], {}, {}
+
+    def greedy_tap(u, v, valid, nv, alpha, beta, delta, permpos):  # the launches of the block being ordered
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        keys, steps, work = greedy_kernel(u, v, valid, nv, alpha, beta, delta, permpos)
+        end.record()
+        blocks[-1]["runs"].append(dict(nv=int(nv), unique=int(u.shape[0]), events=(start, end), steps=steps))
+        return keys, steps, work
+
+    FRK.greedy_keys = greedy_tap  # full_order_device looks it up at each call
+
+    def on_block(c, block):
+        blocks.append(dict(chunk=int(c), rows=int(block.shape[0]), vertices=int(np.unique(block).shape[0]),
+                           greedy=greedy_fits_block(FRK, block, hcfg.k_min, hcfg.k_max), runs=[]))
+
+    def phase(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        wall[name] = time.perf_counter() - t0
+        rss[name] = OM.read_peak_rss()[1]
+        print(f"rank {r} phase {name}: {wall[name]:.3f} s, peak RSS {rss[name]:.1f} MB", flush=True)
+        return out
+
+    rank, splits, sizes = phase("A", lambda: OH.rank_and_splits(group, plan, hcfg, cfg["stride"]))
+    mat = OH.ChunkMaterializer(rank, splits, sizes, plan, hcfg, device=dev, on_block=on_block)
+    data = phase("B", lambda: OH.commit_pack(mat, group, OH.K_PACK))
+    arrays = dict(commit_edges=data.edges.cpu().numpy(), commit_mask=data.mask.cpu().numpy(),
+                  commit_degrees=data.degrees.cpu().numpy())
+    reg = OM.MetricsRegistry()
+    rx, n = ElasticRescaler(metrics_registry=reg), data.num_edges
+    rescales = []
+
+    def rescale(d, k_new):
+        sent0, recv0 = (reg.counter(f"rescale.{c}_bytes").value for c in ("sent", "received"))
+        new, st = rx.execute(d, cep.scale_plan(n, d.k, k_new), recheck=True)
+        rescales.append(dict(k_old=st.k_old, k_new=k_new, ms=st.elapsed_s * 1e3, recheck_s=st.recheck_s,
+                             rf=new.replication_factor, mirrors=new.mirrors, migrated_edges=st.migrated_edges,
+                             cross_device_edges=st.cross_device_edges,
+                             sent=reg.counter("rescale.sent_bytes").value - sent0,
+                             received=reg.counter("rescale.received_bytes").value - recv0))
+        return new
+
+    def phase_c():
+        up = rescale(data, OH.K_UP)
+        return up, rescale(up, OH.K_PACK)
+
+    up, back = phase("C", phase_c)
+    arrays.update(up_edges=up.edges.cpu().numpy(), up_mask=up.mask.cpu().numpy(),
+                  back_edges=back.edges.cpu().numpy(), back_mask=back.mask.cpu().numpy())
+    stream = phase("D", lambda: OH.stream_phase(plan))
+    segment_rf.segment_distinct_counts, FRK.greedy_keys = rf_kernel, greedy_kernel
+    for b in blocks:
+        runs = b.pop("runs")
+        b["launches"] = len(runs)
+        for run in runs:
+            ms, steps = run["events"][0].elapsed_time(run["events"][1]), int(run["steps"][0])
+            b.update(ms=ms, steps=steps, us_per_step=ms / steps * 1e3, unique=run["unique"],
+                     branch="global" if FRK._kernel()[1](run["nv"]) > 0 else "shared")
+    meta = dict(rank=r, device=str(dev), backend=group.backend, splits=[int(x) for x in splits], chunk_sizes=sizes,
+                num_edges=int(data.num_edges), parts=data.local_partitions(), k_pad_up=up.k_pad, wall=wall,
+                peak_rss_mb=rss, rss_field=OM.read_peak_rss()[0], blocks=blocks, rescales=rescales, stream=stream,
+                greedy_launches=FRK.launches, segment_rf_launches=segment_rf.launches,
+                segment_rf_tapped=[dict(shape=list(rows.shape), exact=bool(torch.equal(
+                    counts, segment_rf.segment_distinct_counts_torch(rows)))) for rows, counts in rf_tapped])
+    dist.destroy_process_group()
+    np.savez(run_dir / f"rank{r}.npz", **arrays)
+    (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
+    print(f"rank {r}: chunks {[b['chunk'] for b in blocks]}, greedy kernel launched {meta['greedy_launches']} times "
+          + ", ".join(f"chunk {b['chunk']} {b['ms']:.3f} ms ({b['steps']} steps, {b['us_per_step']:.2f} us a step, "
+                      f"{b['vertices']} vertices, state in {b['branch']} memory)" for b in blocks if "ms" in b)
+          + f"; segment_rf {meta['segment_rf_launches']} times; rescales "
+          + ", ".join(f"{x['k_old']}->{x['k_new']} {x['ms']:.3f} ms, sent {x['sent']:.0f} B, received "
+                      f"{x['received']:.0f} B" for x in rescales)
+          + f"; stream {stream['num_edges']} edges, spills {stream['spill']['spills']}, faults "
+            f"{stream['spill']['faults']}, resident {stream['resident']}", flush=True)
+    return 0
+
+
+def outofcore_oracle(plan_kw: dict, cfg_kw: dict, stride: int, k: int):
+    """Path 7's in-core oracle on the host, beside the running ranks: the whole
+    edge list, ``hier_order_edges`` in the mirror chunk mode (the greedy's
+    host mirror on every chunk) and the slot pack at k. Returns the ordered
+    list, the chunk splits and sizes, the pack's (edges, mask, degrees) and
+    its seconds."""
+    from repro_torch.core import cep
+    from repro_torch.core import hier_order as HO
+    from repro_torch.data import shards as DS
+    from repro_torch.graphs import engine as E
+
+    t0 = time.perf_counter()
+    plan = DS.RmatShardPlan(**plan_kw)
+    edges = np.concatenate([DS.shard_edges(plan, s) for s in range(plan.num_shards)])
+    cfg = HO.HierConfig(**{**cfg_kw, "chunk_mode": "mirror"})
+    ordered, info = HO.hier_order_edges(edges, plan.num_vertices, cfg, sample=DS.sample_edges(plan, stride))
+    bounds = cep.chunk_bounds(ordered.shape[0], k)
+    spr = int(np.diff(bounds).max())
+    slots = [np.zeros(k * spr, dtype=np.int64), np.zeros(k * spr, dtype=np.int64), np.zeros(k * spr, dtype=bool)]
+    for p in range(k):
+        at = slice(p * spr, p * spr + int(bounds[p + 1] - bounds[p]))
+        slots[0][at], slots[1][at], slots[2][at] = ordered[bounds[p]:bounds[p + 1], 0], \
+            ordered[bounds[p]:bounds[p + 1], 1], True
+    pack = E.host_pack_slots(*slots, k, plan.num_vertices)
+    return edges, ordered, info, pack, time.perf_counter() - t0
+
+
+def outofcore_path(tag: str, backend: str, devices: list) -> dict:
+    """Path 7: the out-of-core pipeline over g = 4 ranks (2 processes x 2)
+    started by the port's ``launch_local_cluster``, each on its entry of
+    ``devices`` over ``backend``. While the ranks run, the parent computes the
+    in-core oracle (``outofcore_oracle``, every chunk on the greedy's host
+    mirror). Gates: every rank derived the same splits and chunk sizes, equal
+    to the oracle's; the commit, reassembled from the ranks' row blocks, is
+    byte-equal to the oracle's pack at k = 8 (so every greedy launch equals the
+    mirror on its chunk); each rank's greedy launches equal the blocks it
+    ordered with two rows or more inside the int32 bound, at least one; each
+    re-checked rescale's RF equals the oracle order's at its k, with
+    ``segment_rf`` launched on every rank, each launch exact; 8 -> 12 -> 8
+    returns every partition's live prefix; at k = 12 the prefixes concatenate
+    to the oracle's order; the ranks' stream phases agree, resident <= 8.
+    The worst RF ratio against host ``geo_order`` over k in ``OC_RF_KS`` is
+    a reading. Returns readings."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_outofcore_harness as OH
+
+    from repro_torch.core import cep, ordering
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.metrics import replication_factor_ordered
+    from repro_torch.launch import multihost as MH
+    from repro_torch.launch import sharding as SH
+
+    g = MULTIRANK_PROCS * MULTIRANK_DEVS
+    run_dir = ROOT / "build" / "outofcore" / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    (run_dir / "config.json").write_text(json.dumps(dict(plan=OC_PLAN, hier=OC_CFG, stride=OC_STRIDE,
+                                                         timeout_s=MULTIRANK_GROUP_TIMEOUT_S)))
+    t0 = time.perf_counter()
+    cluster = MH.launch_local_cluster(MULTIRANK_PROCS, MULTIRANK_DEVS,
+                                      [str(ROOT / "chip_smoke.py"), "--oc-worker", str(run_dir)],
+                                      backend=backend, devices=devices,
+                                      env_extra={"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"})
+    edges, ordered, info, (want_e, want_m, want_deg), oracle_s = outofcore_oracle(OC_PLAN, OC_CFG, OC_STRIDE,
+                                                                                  OH.K_PACK)
+    res = cluster.wait(OC_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for p in res.procs:
+        for line in p.stdout.splitlines():
+            log(f"path 7 ({tag}) {line}")
+    check(res.ok, f"path 7 ({tag}): a rank failed\n{res.format_logs()}")
+    ranks = [(dict(np.load(run_dir / f"rank{r}.npz")), json.loads((run_dir / f"rank{r}.json").read_text()))
+             for r in range(g)]
+    first = ranks[0][1]
+    check(all((m["splits"], m["chunk_sizes"], m["num_edges"]) == (first["splits"], first["chunk_sizes"],
+                                                                   first["num_edges"]) for _, m in ranks),
+          f"path 7 ({tag}): the ranks derived different splits or chunk sizes")
+    check(first["splits"] == info["splits"].tolist() and first["chunk_sizes"] == info["chunk_sizes"]
+          and first["num_edges"] == ordered.shape[0], f"path 7 ({tag}): the ranks' splits differ from the oracle's")
+
+    def whole(name, k):
+        """Partition-major rows of the ranks' blocks, and whether the padding rows are empty."""
+        e, m = (np.concatenate([a[f"{name}_{part}"] for a, _ in ranks]) for part in ("edges", "mask"))
+        rows = [SH.partition_row(p, k, g) for p in range(k)]
+        pad = np.setdiff1d(np.arange(e.shape[0]), rows)
+        return e[rows], m[rows], not e[pad].any() and not m[pad].any()
+
+    ce, cm, pad_ok = whole("commit", OH.K_PACK)
+    check(ce.tobytes() == want_e.tobytes() and cm.tobytes() == want_m.tobytes() and pad_ok
+          and all(a["commit_degrees"].tobytes() == want_deg.tobytes() for a, _ in ranks),
+          f"path 7 ({tag}): the commit, reassembled, differs from the in-core mirror oracle's pack")
+    rf_want = {k: replication_factor_ordered(ordered[:, 0], ordered[:, 1], k, 1 << OC_PLAN["scale"])
+               for k in (OH.K_UP, OH.K_PACK)}
+    for i, (_, m) in enumerate(ranks):
+        fits = sum(b["greedy"] for b in m["blocks"])
+        check(m["greedy_launches"] == fits >= 1 and all(b["launches"] == b["greedy"] for b in m["blocks"]),
+              f"path 7 ({tag}) rank {i}: the greedy kernel launched {m['greedy_launches']} times "
+              f"{[b['launches'] for b in m['blocks']]} for {fits} blocks inside its int32 bound "
+              f"{[b['greedy'] for b in m['blocks']]}")
+        check([(x["k_new"], x["rf"]) for x in m["rescales"]] == [(k, rf_want[k]) for k in (OH.K_UP, OH.K_PACK)],
+              f"path 7 ({tag}) rank {i}: re-checked RF {[x['rf'] for x in m['rescales']]}, the oracle's {rf_want}")
+        tapped = m["segment_rf_tapped"]
+        check(m["segment_rf_launches"] == len(tapped) == 2 and all(t["exact"] for t in tapped),
+              f"path 7 ({tag}) rank {i}: segment_rf launched {m['segment_rf_launches']} times, exact "
+              f"{[t['exact'] for t in tapped]}")
+        s = m["stream"]
+        check(s == first["stream"] and s["peak_resident"] <= OH.SPILL_RESIDENT and s["spill"]["spills"] > 0,
+              f"path 7 ({tag}) rank {i}: stream phase {s}, rank 0's {first['stream']}")
+    be, bm, pad_ok = whole("back", OH.K_PACK)
+    for p in range(OH.K_PACK):
+        n_live = int((want_m[p] > 0).sum())
+        check(int((bm[p] > 0).sum()) == n_live and (bm[p][:n_live] > 0).all() and pad_ok
+              and np.array_equal(be[p][:n_live], want_e[p][want_m[p] > 0]),
+              f"path 7 ({tag}): partition {p} did not return to the commit after 8 -> 12 -> 8")
+    ue, um, pad_ok = whole("up", OH.K_UP)
+    sizes = np.diff(cep.chunk_bounds(ordered.shape[0], OH.K_UP))
+    check(pad_ok and [int((x > 0).sum()) for x in um] == sizes.tolist()
+          and np.array_equal(np.concatenate([e[x > 0] for e, x in zip(ue, um)]), ordered.astype(np.int32)),
+          f"path 7 ({tag}): at k = {OH.K_UP} the partition prefixes differ from the oracle's order")
+    for j, x in enumerate(first["rescales"]):
+        sent, received = (sum(m["rescales"][j][c] for _, m in ranks) for c in ("sent", "received"))
+        check(sent == received == x["cross_device_edges"] * 8,
+              f"path 7 ({tag}): rescale {x['k_old']}->{x['k_new']} sent {sent} B, received {received} B")
+
+    # The reading of quality: the hierarchical order's RF against host
+    # geo_order of the deduplicated graph (duplicates ride in the order).
+    t1 = time.perf_counter()
+    v = 1 << OC_PLAN["scale"]
+    _, first_idx = np.unique(edges[:, 0] * np.int64(v) + edges[:, 1], return_index=True)
+    dedup = Graph.from_edges(edges[np.sort(first_idx)], v)
+    o = ordering.geo_order(dedup, seed=0)
+    ratios = {k: replication_factor_ordered(ordered[:, 0], ordered[:, 1], k, v)
+              / replication_factor_ordered(dedup.src[o], dedup.dst[o], k, v) for k in OC_RF_KS}
+    geo_s = time.perf_counter() - t1
+    out = dict(ranks=g, processes=MULTIRANK_PROCS, backend=backend, devices=devices, wall_s=wall, oracle_s=oracle_s,
+               geo_reading_s=geo_s, num_edges=int(ordered.shape[0]), unique_edges=int(dedup.num_edges),
+               chunk_sizes=first["chunk_sizes"], rf_ratio_by_k=ratios, worst_rf_ratio=max(ratios.values()),
+               wall_by_rank={ph: [m["wall"][ph] for _, m in ranks] for ph in "ABCD"},
+               peak_rss_mb_by_rank=[max(m["peak_rss_mb"].values()) for _, m in ranks], rss_field=first["rss_field"],
+               greedy_launches=[m["greedy_launches"] for _, m in ranks],
+               segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
+               chunks=[{k: b[k] for k in ("chunk", "rows", "unique", "vertices", "steps", "ms", "us_per_step", "branch")
+                        if k in b} | {"rank": i} for i, (_, m) in enumerate(ranks) for b in m["blocks"]],
+               rescales=[dict(k_old=x["k_old"], k_new=x["k_new"], ms_by_rank=[m["rescales"][j]["ms"] for _, m in ranks],
+                              sent_by_rank=[m["rescales"][j]["sent"] for _, m in ranks],
+                              received_by_rank=[m["rescales"][j]["received"] for _, m in ranks], rf=x["rf"])
+                         for j, x in enumerate(first["rescales"])],
+               stream=first["stream"])
+    log(f"path 7 ({tag}): {g} ranks over {backend} on {sorted(set(devices))}, {wall:.3f} s in all (the oracle "
+        f"{oracle_s:.3f} s beside the ranks); {len(first['chunk_sizes'])} chunks of {first['chunk_sizes']} edges; "
+        f"phases A/B/C/D by rank "
+        + "; ".join(f"{ph} {[round(x, 3) for x in out['wall_by_rank'][ph]]} s" for ph in "ABCD")
+        + f"; greedy launches by rank {out['greedy_launches']}, segment_rf {out['segment_rf_launches']}; commit "
+        f"byte-equal to the mirror oracle; RF at 12 and 8 equal to the oracle's; round trip and k = 12 sequence "
+        f"equal; peak RSS {[round(x, 1) for x in out['peak_rss_mb_by_rank']]} MB by rank ({first['rss_field']}); "
+        f"stream {first['stream']}; worst RF ratio to geo_order {out['worst_rf_ratio']:.4f} (a reading; geo_order "
+        f"{geo_s:.3f} s)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
     ap.add_argument("--edge-factor", type=int, default=16, help="RMAT edges sampled per vertex")
     ap.add_argument("--cards", type=int, default=1,
-                    help="4: only slice 1, path 5 (a) and (c) and path 6 (c), (c) being g = 4 ranks over NCCL, "
-                         "one card each")
+                    help="4: only slice 1, path 5 (a) and (c), path 6 (c) and path 7 (c), (c) being g = 4 ranks "
+                         "over NCCL, one card each")
     ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
     ap.add_argument("--stream-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 6
+    ap.add_argument("--oc-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 7
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1209,6 +1536,8 @@ def main() -> int:
         return multirank_worker(args.rank_worker)
     if args.stream_rank_worker is not None:
         return streamrank_worker(args.stream_rank_worker)
+    if args.oc_worker is not None:
+        return outofcore_worker(args.oc_worker)
     check(args.cards in (1, 4) and torch.cuda.device_count() >= args.cards,
           f"--cards {args.cards}: 1 or 4 cards, and {torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(ROOT / "src"))
@@ -1278,7 +1607,7 @@ def main() -> int:
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c) and path 6 (c) only
+    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), path 6 (c) and path 7 (c) only
         # ------------------------------------------------ kernel parity: segment_rf
         rng = np.random.default_rng(0)
         cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
@@ -1506,6 +1835,15 @@ def main() -> int:
         np.savez(path, src=src14, dst=dst14, base_src=g14.src, base_dst=g14.dst)
         return path
 
+    def run_outofcore(tag, backend, devices) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = outofcore_path(tag, backend, devices)
+        phases[f"outofcore_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 7 ({tag}): the parent launched {parent}, expected none")
+        return read
+
     def check_streamrank(read: dict) -> None:
         a, b = read["a"], read["b"]
         check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
@@ -1532,6 +1870,9 @@ def main() -> int:
         check_streamrank(streamrank_read)
         for read in streamrank_read.values():
             read.pop("rows", None)
+        # Path 7 (c): the out-of-core pipeline over NCCL, one card a rank.
+        outofcore_read = {"c": run_outofcore("c_g4_nccl_4cards", "nccl", cards)}
+        log(json.dumps({"outofcore": outofcore_read}))
         log(json.dumps({"multirank": multirank_read, "streamrank": streamrank_read, "phases": phases}))
         log(f"card: {card}")
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1724,6 +2065,12 @@ def main() -> int:
     check_streamrank(streamrank_read)
     streamrank_rows = streamrank_read["b"].pop("rows")
     streamrank_read["a"].pop("rows", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- path 7: the out-of-core pipeline
+    # (a) g = 4 over gloo, 2 processes x 2 ranks, every rank on the one card.
+    outofcore_read = {"a": run_outofcore("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4)}
 
     # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
@@ -1889,9 +2236,18 @@ def main() -> int:
                                         "full_reorder": sum(read["greedy_launches"])}
         report["segment_rf"][f"streamrank_{tag}_by_rank"] = read["segment_rf_launches"]
         report["full_reorder"][f"streamrank_{tag}_by_rank"] = read["greedy_launches"]
+    for tag, read in outofcore_read.items():  # path 7: the same
+        by_path[f"outofcore_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
+                                       "full_reorder": sum(read["greedy_launches"])}
+        report["segment_rf"][f"outofcore_{tag}_by_rank"] = read["segment_rf_launches"]
+        report["full_reorder"][f"outofcore_{tag}_by_rank"] = read["greedy_launches"]
+        report["full_reorder"][f"outofcore_{tag}_chunks"] = [
+            {k: c[k] for k in ("chunk", "vertices", "steps", "ms", "us_per_step", "branch")} for c in read["chunks"]
+            if "ms" in c]
     log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
     log(json.dumps({"multirank": multirank_read}))
     log(json.dumps({"streamrank": streamrank_read}))
+    log(json.dumps({"outofcore": outofcore_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -1918,7 +2274,7 @@ def main() -> int:
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
-            **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_"))},
+            **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_", "outofcore_"))},
         })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -13,13 +13,15 @@ Thm.-2-minimal rescale property:
                     per-partition slack slots of the engine pack, a compact
                     gather that rescales the streaming pack k→k', and the span
                     and full re-order rungs as device programs.
+* ``spill``       — cold-region spill layer: bounded-resident host mirror
+                    (LRU-by-escalation region blocks to host/disk) and the
+                    lean content-addressed ingestor the out-of-core path
+                    streams through.
 * ``workload``    — open-loop query traffic model (bursty + diurnal arrival
                     process, stateless-hash deterministic).
-
-The JAX package's ``spill`` module (cold-region spill, out-of-core ingest) has
-no counterpart here yet.
 """
 from .updates import EdgeUpdateBatch, SyntheticStream  # noqa: F401
 from .incremental import IncrementalOrderer, StreamConfig, best_insert_position  # noqa: F401
 from .ingest import StreamingEngine, IngestStats, StreamRescaleStats  # noqa: F401
+from .spill import SpillConfig, SpillStore, OutOfCoreIngestor  # noqa: F401
 from .workload import OpenLoopWorkload, QueryArrival  # noqa: F401

@@ -1006,9 +1006,14 @@ class IncrementalOrderer:
         ``needs_resync``; ``drain_gather_map`` feeds the on-device compact."""
         d = self.drift()  # Σ|V_p| scales with the region count, so carry the
         src_o, dst_o = self.snapshot()  # drift VALUE across the k change
-        old_slot = self._slot_of_edges(src_o, dst_o)
+        old_valid = self.slot_valid.copy()
         self._layout(src_o, dst_o, int(regions))
-        self._map_gather(old_slot, src_o, dst_o)
+        # Both layouts hold the same order in slot order (snapshot reads the
+        # occupied slots ascending, _layout spreads them ascending), so the
+        # i-th occupied new slot is filled from the i-th occupied old slot.
+        gm = np.full(self.capacity, -1, dtype=np.int64)
+        gm[np.flatnonzero(self.slot_valid)] = np.flatnonzero(old_valid)
+        self._gather_from = gm
         self._finish_relayout()
         self._baseline_kappa = self._kappa() / max(d, 1e-12)
 
@@ -1021,20 +1026,6 @@ class IncrementalOrderer:
         self._layout(src_o, dst_o, self._regions, spr=spr)
         self._finish_relayout()
         self._baseline_kappa = self._kappa() / max(d, 1e-12)
-
-    def _slot_of_edges(self, src_o: np.ndarray, dst_o: np.ndarray) -> dict:
-        return {
-            (int(a), int(b)): self._edge2slot[(int(a), int(b))]
-            for a, b in zip(src_o.tolist(), dst_o.tolist())
-        }
-
-    def _map_gather(self, old_slot: dict, src_o: np.ndarray, dst_o: np.ndarray) -> None:
-        gm = np.full(self.capacity, -1, dtype=np.int64)
-        occupied = np.flatnonzero(self.slot_valid)
-        for s_ in occupied.tolist():
-            key = (int(self.slot_src[s_]), int(self.slot_dst[s_]))
-            gm[s_] = old_slot[key]
-        self._gather_from = gm
 
     def _finish_relayout(self) -> None:
         self._ops.clear()

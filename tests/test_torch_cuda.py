@@ -602,6 +602,59 @@ def test_greedy_wrapper_rejects_bad_input(cuda, bad):
     assert FRK.launches == before
 
 
+def _oc_block(case: str) -> np.ndarray:
+    """Out-of-core edge blocks over ids spread across 2**20: "small" (an
+    RMAT-12 graph, 2,967 compacted vertices: the greedy's state in
+    shared memory), "wide" (100,000 random edges among 30,000 vertices: its
+    state in the global scratch) and "duplicates" (the small block with
+    repeated rows, shuffled)."""
+    rng = np.random.default_rng(5)
+    ids = rng.choice(1 << 20, size=30_000, replace=False)
+    if case == "wide":
+        e = ids[rng.integers(0, ids.shape[0], size=(100_000, 2))]
+        e = e[e[:, 0] != e[:, 1]]
+    else:
+        g = rmat_graph(12, 8, seed=1)
+        e = ids[np.stack([g.src, g.dst], axis=1)]
+        if case == "duplicates":
+            e = np.concatenate([e, e[:500], e[:100]])
+            e = e[rng.permutation(e.shape[0])]
+    return np.sort(e, axis=1).astype(np.int64)
+
+
+@pytest.mark.parametrize("case", ["small", "wide", "duplicates"])
+def test_outofcore_chunk_on_the_greedy_kernel_equals_mirror(cuda, case):
+    """``order_edge_block`` in the device chunk mode on the card: one launch
+    of the greedy kernel a block, the permutation equal to the mirror mode's;
+    the compacted vertex count picks the kernel's state branch."""
+    from repro_torch.core import hier_order as HO
+    from repro_torch.kernels import full_reorder as FRK
+
+    block = _oc_block(case)
+    nv = np.unique(block).shape[0]
+    cfg = HO.HierConfig(chunk_mode="device")
+    before = FRK.launches
+    got = HO.order_edge_block(block, cfg, seed=7, device="cuda")
+    assert FRK.launches == before + 1
+    np.testing.assert_array_equal(got, HO.order_edge_block(block, HO.HierConfig(chunk_mode="mirror"), seed=7))
+    global_state = FRK._kernel()[1](nv) > 0
+    assert global_state == (case == "wide"), (nv, global_state)
+
+
+def test_outofcore_device_mode_without_a_card_raises(monkeypatch):
+    """On the CPU side: with no CUDA device visible, the device chunk mode
+    raises for ``device=None`` and ``"cuda"`` and launches nothing."""
+    from repro_torch.core import hier_order as HO
+    from repro_torch.kernels import full_reorder as FRK
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    before = FRK.launches
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            HO.order_edge_block(_oc_block("small"), HO.HierConfig(chunk_mode="device"), device=device)
+    assert FRK.launches == before
+
+
 @pytest.mark.parametrize("span_repair,full_rebuild", [("device", "device"), ("differential", "differential"),
                                                       ("oracle", "geo")])
 def test_short_stream_on_cuda_stays_bit_identical(cuda, span_repair, full_rebuild):

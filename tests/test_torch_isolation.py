@@ -39,7 +39,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.kernels.span_reorder", "repro_torch.kernels.full_reorder", "repro_torch.stream",
         "repro_torch.stream.updates", "repro_torch.stream.incremental", "repro_torch.stream.workload",
         "repro_torch.stream.ingest", "repro_torch.launch.mesh", "repro_torch.launch.multihost",
-        "repro_torch.obs.metrics",
+        "repro_torch.obs.metrics", "repro_torch.data", "repro_torch.data.shards", "repro_torch.data.pipeline",
+        "repro_torch.core.hier_order", "repro_torch.stream.spill",
     } <= set(result["modules"])
 
 
@@ -54,7 +55,7 @@ def test_no_exception_handler_on_the_kernel_path():
     files = [PORT / "kernels" / n for n in ("_build.py", "segment_rf.py", "ops.py", "edge_spmv.py",
                                              "flash_attention.py", "decode_attention.py", "span_reorder.py",
                                              "full_reorder.py")]
-    files += sorted((PORT / "stream").glob("*.py"))
+    files += sorted((PORT / "stream").glob("*.py")) + [PORT / "core" / "hier_order.py"]
     files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if re.match(r"^\s*(try|except)\b", line)]

@@ -141,6 +141,25 @@ def test_orderer_equals_reference_through_relayouts_and_repairs(ordered):
         _same_slots(o, jo)
 
 
+def test_relayout_gather_map_after_heavy_deletes_equals_reference(ordered):
+    """A relayout to the same region count after most edges were deleted: the
+    old layout is full of gaps, and the gather map still equals the JAX
+    package's, -1 at every free slot of the new layout."""
+    g, src, dst = ordered
+    o, jo = _orderers(ordered, regions=4)
+    rng = np.random.default_rng(11)
+    gone = np.stack([src, dst], axis=1)[rng.random(src.shape[0]) < 0.7]
+    batch = EdgeUpdateBatch(insert=np.empty((0, 2), np.int64), delete=gone)
+    assert o.apply(batch) == jo.apply(J_upd.EdgeUpdateBatch(insert=batch.insert, delete=batch.delete))
+    o.drain_ops(), jo.drain_ops()
+    o.relayout(4), jo.relayout(4)
+    gm, jgm = o.drain_gather_map(), jo.drain_gather_map()
+    np.testing.assert_array_equal(gm, jgm)
+    assert (gm[~o.slot_valid] == -1).all() and (gm[o.slot_valid] >= 0).all()
+    assert o.num_edges == src.shape[0] - gone.shape[0]
+    _same_slots(o, jo)
+
+
 # ------------------------------------------------------------- device twins
 def _twin_inputs(case: str):
     """(u, v, valid, num_vertices) slot arrays: a drifted RMAT stream with
