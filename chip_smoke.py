@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
     python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
-    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c), path 6 (c) and path 7 (c) only
+    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c), paths 6 (c), 7 (c), 8 (c) only
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -112,8 +112,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    graph at full width over 16 regions, device span repairs of 2 regions (the
    span crosses ranks, gathered to every rank), the full rung held off; a
    batch of 1,024 updates, a rescale 16→12 (the slots that change rank sent
-   rank to rank), ``from_restored`` on the ranks' orderers (its pack equal to
-   the live one on every rank) and one more batch; (b)
+   rank to rank) and ``from_restored`` on the ranks' orderers (its pack equal
+   to the live one on every rank); (b)
    path 4's RMAT-14 graph and rung settings, ``differential`` span and full
    rungs, one rebuild committed and one aborted by a rescale 8→10, every
    ``segment_rf`` launch of every rank tapped and held exactly against the
@@ -140,9 +140,33 @@ Phases, in order; any failure raises and the script exits nonzero:
    k = 12 sequence, and the ranks' stream phases equal and within their
    resident bound; each chunk's greedy time, steps and state branch, the
    bytes of the rescales, peak RSS by rank and the RF ratio to host
-   ``geo_order`` are readings. ``--cards 4`` runs (c): the same over NCCL,
-   a card a rank;
-12. each kernel's time (CUDA events) beside its bound, the plain version's
+   ``geo_order`` are readings; the oracle orders its chunks, and takes the
+   ``geo_order`` reading, in a pool of 4 spawned processes. ``--cards 4``
+   runs (c): the same over NCCL, a card a rank;
+12. path 8, the control plane, at path 4's size and rung settings (RMAT-14,
+   8 regions, span ``differential``, full ``device`` with two batches in
+   flight), with every launch count set to 0 just before it: (a) in this
+   process, an ``ElasticController`` on an injected clock with a
+   ``SlotCheckpoint`` and an autoscaler drives the engine: batches through
+   ``ingest``, a host that stops heartbeating (``poll``: 8 -> 7 and a WAL
+   scale barrier), a backlog (``autoscale``: 7 -> 9), the full rung forced
+   and one more batch in flight; then the kill (the live slots kept, the
+   controller, engine and orderer dropped, the card's memory freed), the
+   restore from disk, ``from_restored``, ``report_failure`` (9 -> 8) and two
+   batches in which both rungs fire again. Gates: the restored slots
+   byte-equal to the live ones at the kill, the restored pack equal to
+   ``pack_slots``, ``verify_bit_identity`` after every event, the event seqs
+   and the JSONL round trip, the checkpoint counters, a valid Chrome trace,
+   every ``segment_rf`` launch exact and every greedy launch equal to the
+   host mirror, each kernel launched before and after the restore. (b) the
+   SIGKILL drill of ``tests/torch_faults_harness.py`` on 4 gloo ranks on the
+   one card (escalation parked, 12 batches of 1,024), process 1's ranks
+   killed after batch 5, the lease board's detection within the lease + 2 s,
+   recovery on 2 ranks from disk with ``report_failure`` 8 -> 4 across them;
+   the restore point, the final slots and the reassembled final pack
+   byte-equal to the no-failure host oracle, the two ranks' event logs
+   equal. ``--cards 4`` runs (c): (b) over NCCL, a card a rank;
+13. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes; ``segment_rf`` on the card alone
    (calls captured in a CUDA graph) and as a caller pays it (back-to-back
@@ -159,7 +183,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
 ``{"streamrank": ...}`` line of path 6's, an ``{"outofcore": ...}`` line of
-path 7's, then the card line, one ``{"kernels": [...]}`` JSON line
+path 7's, a ``{"control": ...}`` line of path 8's, then the card line, one
+``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
 prints no result.
@@ -234,14 +259,15 @@ MULTIRANK_GROUP_TIMEOUT_S, MULTIRANK_TIMEOUT_S = 300.0, 900.0
 # ingest and a monitor, "force" the same with the full rung forced, an int a
 # rescale, "restore" from_restored on the ranks' orderers. (a) the slice-1
 # graph at full width, 16 regions, a span of 2 regions (so it crosses ranks),
-# the full rung held off: a batch, 16→12, the restore and one more batch (cut
-# from 3 batches before the restore: a batch costs 20–27 s a rank there, four
-# ranks sharing the host, and 3 took the smoke past 900 s). (b) path 4's
+# the full rung held off: a batch, 16→12 and the restore (cut from 3 batches
+# before the restore, and then from the batch after it: a batch costs 20–27 s
+# a rank there, four ranks sharing the host; 3 took the smoke past 900 s, and
+# path 8 drives an engine restored from disk through batches). (b) path 4's
 # graph and rung settings, both rungs in differential mode: one rebuild
 # committed and one aborted by a rescale 8→10.
 STREAMRANK_A = dict(regions=16, batch=STREAM_BATCH, seed=0, span_repair="device", full_rebuild="host", flight=0,
                     config=dict(partial_drift=1.0, full_drift=99.0, span_regions=2),
-                    steps=["batch", 12, "restore", "batch"])
+                    steps=["batch", 12, "restore"])
 STREAMRANK_B = dict(regions=RUNGS_REGIONS, batch=RUNGS_BATCH, seed=3, span_repair="differential",
                     full_rebuild="differential", flight=1,
                     config=dict(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=RUNGS_K_MAX),
@@ -263,6 +289,25 @@ OC_PLAN = dict(scale=17, edge_factor=16, seed=0, num_shards=4)
 OC_CFG = dict(num_chunks=4, max_chunk_edges=1 << 17, seam_window=0, seed=0, chunk_mode="device")
 OC_STRIDE, OC_RF_KS = 2, (4, 8, 16, 32, 64, 128)
 OC_TIMEOUT_S = 600.0
+# The parent's in-core oracle orders its 16 chunk mirrors, and takes its
+# geo_order RF reading, in a pool of spawned processes (the parent holds a
+# CUDA context, so it does not fork) beside the 4 ranks.
+OC_ORACLE_WORKERS = 4
+# Path 8, the control plane on the card, at path 4's size (RMAT-14, 8 regions,
+# objective k in [4, 32], span "differential", full "device" with two batches
+# in flight): the reference measures recovery at RMAT-12 (BENCH_recovery.json);
+# RMAT-20 would break the greedy's int32 bound (no kernel would run) and its
+# checkpoint of about 500 MB would take about 50 s a rank to restore. (a) one
+# rank in this process: an ElasticController with a SlotCheckpoint (a
+# snapshot every CONTROL_INTERVAL batches) and an autoscaler, a host lost to
+# poll (8 -> 7), a backlog scale-out (7 -> 9), the full rung forced and one
+# batch in flight, the kill, the restore from disk, a reported failure (9 ->
+# 8) and CONTROL_AFTER batches after it. (b) tests/torch_faults_harness.py's
+# drill on 4 gloo ranks on the one card: 8 regions, escalation parked,
+# process 1's ranks SIGKILLed after batch 5 of 12, recovery on 2 ranks
+# (8 -> 4); a snapshot every 4 batches, so the restore replays a WAL tail.
+# (c) with --cards 4: (b) over NCCL, a card a rank.
+CONTROL_INTERVAL, CONTROL_AFTER = 3, 2
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -1245,9 +1290,9 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
     shards' ``chunk_load``, ``psum_host``, ``chunk_splits``; B: the commit
     through ``pack_slots_sharded_stream``, one chunk materialized at a time;
     C: ``ElasticRescaler.execute`` 8 -> 12 -> 8, both re-checked through
-    ``segment_rf``; D: the spill-bounded ingest, ``OutOfCoreIngestor.ingest``
-    called directly (the JAX package routes it through its elastic
-    controller, which the port does not have yet). Every greedy launch is
+    ``segment_rf``; D: the spill-bounded ingest through
+    ``ElasticController.ingest``, its spill counters read off the last
+    ``IngestEvent``. Every greedy launch is
     timed with CUDA events and every ``segment_rf`` launch tapped and held
     against the plain version afterwards. Writes ``rank{r}.npz`` (its row
     blocks) and ``rank{r}.json`` (readings)."""
@@ -1357,12 +1402,16 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
     return 0
 
 
-def outofcore_oracle(plan_kw: dict, cfg_kw: dict, stride: int, k: int):
+def outofcore_oracle(plan_kw: dict, cfg_kw: dict, stride: int, k: int, pool):
     """Path 7's in-core oracle on the host, beside the running ranks: the whole
     edge list, ``hier_order_edges`` in the mirror chunk mode (the greedy's
-    host mirror on every chunk) and the slot pack at k. Returns the ordered
-    list, the chunk splits and sizes, the pack's (edges, mask, degrees) and
-    its seconds."""
+    host mirror on every chunk), its chunks ordered in ``pool``
+    (``pooled_mirror_order``, byte-equal to the serial call), and the slot
+    pack at k; the ``geo_order`` RF reading is submitted to the same pool
+    first. Returns the ordered list, the chunk splits and sizes, the pack's
+    (edges, mask, degrees), the reading's future and the oracle's seconds."""
+    import torch_outofcore_harness as OH
+
     from repro_torch.core import cep
     from repro_torch.core import hier_order as HO
     from repro_torch.data import shards as DS
@@ -1371,8 +1420,9 @@ def outofcore_oracle(plan_kw: dict, cfg_kw: dict, stride: int, k: int):
     t0 = time.perf_counter()
     plan = DS.RmatShardPlan(**plan_kw)
     edges = np.concatenate([DS.shard_edges(plan, s) for s in range(plan.num_shards)])
+    geo = pool.submit(OH.geo_rf_by_k, edges, plan.num_vertices, OC_RF_KS)
     cfg = HO.HierConfig(**{**cfg_kw, "chunk_mode": "mirror"})
-    ordered, info = HO.hier_order_edges(edges, plan.num_vertices, cfg, sample=DS.sample_edges(plan, stride))
+    ordered, info = OH.pooled_mirror_order(edges, plan.num_vertices, cfg, DS.sample_edges(plan, stride), pool)
     bounds = cep.chunk_bounds(ordered.shape[0], k)
     spr = int(np.diff(bounds).max())
     slots = [np.zeros(k * spr, dtype=np.int64), np.zeros(k * spr, dtype=np.int64), np.zeros(k * spr, dtype=bool)]
@@ -1381,7 +1431,7 @@ def outofcore_oracle(plan_kw: dict, cfg_kw: dict, stride: int, k: int):
         slots[0][at], slots[1][at], slots[2][at] = ordered[bounds[p]:bounds[p + 1], 0], \
             ordered[bounds[p]:bounds[p + 1], 1], True
     pack = E.host_pack_slots(*slots, k, plan.num_vertices)
-    return edges, ordered, info, pack, time.perf_counter() - t0
+    return ordered, info, pack, geo, time.perf_counter() - t0
 
 
 def outofcore_path(tag: str, backend: str, devices: list) -> dict:
@@ -1389,8 +1439,9 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
     started by the port's ``launch_local_cluster``, each on its entry of
     ``devices`` over ``backend``. While the ranks run, the parent computes the
     in-core oracle (``outofcore_oracle``, every chunk on the greedy's host
-    mirror). Gates: every rank derived the same splits and chunk sizes, equal
-    to the oracle's; the commit, reassembled from the ranks' row blocks, is
+    mirror, in a pool of ``OC_ORACLE_WORKERS`` spawned processes). Gates:
+    every rank derived the same splits and chunk sizes, equal to the
+    oracle's; the commit, reassembled from the ranks' row blocks, is
     byte-equal to the oracle's pack at k = 8 (so every greedy launch equals the
     mirror on its chunk); each rank's greedy launches equal the blocks it
     ordered with two rows or more inside the int32 bound, at least one; each
@@ -1400,11 +1451,13 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
     to the oracle's order; the ranks' stream phases agree, resident <= 8.
     The worst RF ratio against host ``geo_order`` over k in ``OC_RF_KS`` is
     a reading. Returns readings."""
+    import concurrent.futures
+    import multiprocessing
+
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_outofcore_harness as OH
 
-    from repro_torch.core import cep, ordering
-    from repro_torch.core.graph import Graph
+    from repro_torch.core import cep
     from repro_torch.core.metrics import replication_factor_ordered
     from repro_torch.launch import multihost as MH
     from repro_torch.launch import sharding as SH
@@ -1420,8 +1473,13 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
                                       [str(ROOT / "chip_smoke.py"), "--oc-worker", str(run_dir)],
                                       backend=backend, devices=devices,
                                       env_extra={"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"})
-    edges, ordered, info, (want_e, want_m, want_deg), oracle_s = outofcore_oracle(OC_PLAN, OC_CFG, OC_STRIDE,
-                                                                                  OH.K_PACK)
+    with concurrent.futures.ProcessPoolExecutor(OC_ORACLE_WORKERS,
+                                                mp_context=multiprocessing.get_context("spawn")) as pool:
+        ordered, info, (want_e, want_m, want_deg), geo, oracle_s = outofcore_oracle(
+            OC_PLAN, OC_CFG, OC_STRIDE, OH.K_PACK, pool)
+        t1 = time.perf_counter()
+        unique_edges, geo_rf = geo.result()
+        geo_s = time.perf_counter() - t1  # what the reading adds after the oracle
     res = cluster.wait(OC_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for p in res.procs:
@@ -1483,16 +1541,10 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
 
     # The reading of quality: the hierarchical order's RF against host
     # geo_order of the deduplicated graph (duplicates ride in the order).
-    t1 = time.perf_counter()
     v = 1 << OC_PLAN["scale"]
-    _, first_idx = np.unique(edges[:, 0] * np.int64(v) + edges[:, 1], return_index=True)
-    dedup = Graph.from_edges(edges[np.sort(first_idx)], v)
-    o = ordering.geo_order(dedup, seed=0)
-    ratios = {k: replication_factor_ordered(ordered[:, 0], ordered[:, 1], k, v)
-              / replication_factor_ordered(dedup.src[o], dedup.dst[o], k, v) for k in OC_RF_KS}
-    geo_s = time.perf_counter() - t1
+    ratios = {k: replication_factor_ordered(ordered[:, 0], ordered[:, 1], k, v) / geo_rf[k] for k in OC_RF_KS}
     out = dict(ranks=g, processes=MULTIRANK_PROCS, backend=backend, devices=devices, wall_s=wall, oracle_s=oracle_s,
-               geo_reading_s=geo_s, num_edges=int(ordered.shape[0]), unique_edges=int(dedup.num_edges),
+               geo_reading_s=geo_s, num_edges=int(ordered.shape[0]), unique_edges=int(unique_edges),
                chunk_sizes=first["chunk_sizes"], rf_ratio_by_k=ratios, worst_rf_ratio=max(ratios.values()),
                wall_by_rank={ph: [m["wall"][ph] for _, m in ranks] for ph in "ABCD"},
                peak_rss_mb_by_rank=[max(m["peak_rss_mb"].values()) for _, m in ranks], rss_field=first["rss_field"],
@@ -1512,9 +1564,290 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
         + f"; greedy launches by rank {out['greedy_launches']}, segment_rf {out['segment_rf_launches']}; commit "
         f"byte-equal to the mirror oracle; RF at 12 and 8 equal to the oracle's; round trip and k = 12 sequence "
         f"equal; peak RSS {[round(x, 1) for x in out['peak_rss_mb_by_rank']]} MB by rank ({first['rss_field']}); "
-        f"stream {first['stream']}; worst RF ratio to geo_order {out['worst_rf_ratio']:.4f} (a reading; geo_order "
-        f"{geo_s:.3f} s)")
+        f"stream {first['stream']}; worst RF ratio to geo_order {out['worst_rf_ratio']:.4f} (a reading; geo_order in "
+        f"the oracle's pool, waited {geo_s:.3f} s after the oracle)")
     return out
+
+
+def control_path(dev, graph, segment_rf) -> dict:
+    """Path 8 (a): the control plane on ``dev`` at path 4's size, one rank in
+    this process. An ``ElasticController`` on an injected clock drives a
+    ``StreamingEngine`` (span ``differential``, full ``device``, two batches
+    in flight) with a ``SlotCheckpoint`` and an autoscaler: batches through
+    ``ingest``, a host that stops heartbeating (``poll``: 8 -> 7, a WAL scale
+    barrier), a backlog (``autoscale``: 7 -> 9), the full rung forced and one
+    more batch in flight; then the kill (the live slots kept; controller,
+    engine and orderer dropped, the card's memory freed), the restore from
+    disk, ``from_restored``, ``report_failure`` (9 -> 8) and more batches, in
+    which both rungs fire again. Gates: the restored slots byte-equal to the
+    live ones at the kill, the restored pack equal to ``pack_slots`` of the
+    restored orderer, ``verify_bit_identity`` after every event, the event
+    seqs 0..n-1 and the JSONL round trip, the checkpoint counters, a valid
+    Chrome trace, every ``segment_rf`` launch exact against its plain version
+    and every greedy launch equal to ``_full_order_host``, each kernel
+    launched before and after the restore. Returns readings."""
+    from repro_torch.checkpoint import SlotCheckpoint
+    from repro_torch.elastic.autoscale import AutoscaleConfig, AutoscalePolicy
+    from repro_torch.elastic.controller import ElasticController
+    from repro_torch.graphs import engine as E
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import span_reorder as SRK
+    from repro_torch.obs import chrome_trace, events_from_jsonl, validate_chrome_trace
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    kernel, tapped = SRK.segment_distinct_counts, []
+
+    def tap(rows):
+        counts = kernel(rows)
+        tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    SRK.segment_distinct_counts = tap
+    greedy_tapped: list = []
+    greedy_kernel, FRK.greedy_keys = greedy_tap(FRK, greedy_tapped)
+    g, src, dst = graph
+    ck_dir = ROOT / "build" / "control" / "ckpt8"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    t = [0.0]  # the controllers' injected clock: liveness and autoscale decisions replay exactly
+    tracer, reg = Tracer(), MetricsRegistry()
+    cfg = StreamConfig(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=RUNGS_K_MAX)
+    engine_kw = dict(device=dev, span_repair="differential", full_rebuild="device", rebuild_flight=2,
+                     tracer=tracer, metrics_registry=reg)
+    policy = AutoscaleConfig(k_min=4, k_max=RUNGS_K_MAX, step_out=2, ema=1.0, out_cooldown_s=5.0, in_cooldown_s=5.0)
+    stream = SyntheticStream(g, batch_size=RUNGS_BATCH, seed=4)
+    checks, batch = [], 0
+
+    def controller(k):
+        ctl = ElasticController(k, dead_after_s=5.0, clock=lambda: t[0], tracer=tracer, metrics_registry=reg)
+        ctl.attach_autoscaler(AutoscalePolicy(policy))
+        return ctl
+
+    def event(ctl, what: str) -> None:
+        ctl.stream.verify_bit_identity()
+        checks.append(what)
+
+    def ingest(ctl, force=False, silent=()):
+        nonlocal batch
+        batch += 1
+        t[0] += 1.0
+        for h, st in ctl.hosts.items():
+            if st.alive and h not in silent:
+                ctl.heartbeat(h, batch)
+        if force:
+            ctl.stream.orderer.drift = lambda: 200.0  # over full_drift: the full rung fires
+        ev = ctl.ingest(stream.batch())
+        if force:
+            del ctl.stream.orderer.drift
+        event(ctl, f"batch {batch} ({ev.escalation}, {ev.rebuild_state or ev.repair})")
+        return ev
+
+    t0 = time.perf_counter()
+    o = IncrementalOrderer(src, dst, g.num_vertices, regions=RUNGS_REGIONS, config=cfg)
+    eng = StreamingEngine(o, **engine_kw)
+    ctl = controller(RUNGS_REGIONS)
+    ctl.attach_stream(eng)
+    ctl.attach_checkpoint(SlotCheckpoint(ck_dir, interval=CONTROL_INTERVAL, tracer=tracer, metrics_registry=reg))
+    lost = RUNGS_REGIONS - 1
+    ingest(ctl)
+    ingest(ctl, silent=(lost,))
+    t[0] += 6.0  # host `lost` has not beaten for 7 s
+    for h, st in ctl.hosts.items():
+        if st.alive and h != lost:
+            ctl.heartbeat(h, batch)
+    ev_poll = ctl.poll()
+    check(ev_poll is not None and ev_poll.kind == "scale_in" and ev_poll.executed and ev_poll.lost_hosts == (lost,),
+          f"path 8 (a): poll gave {ev_poll}, expected an executed scale-in of host {lost}")
+    event(ctl, f"poll {ev_poll.k_old}->{ev_poll.k_new}")
+    wal = [json.loads(line) for line in (ck_dir / "wal.jsonl").read_text().splitlines()]
+    check(wal[-1]["kind"] == "scale" and wal[-1]["k_new"] == ev_poll.k_new,
+          f"path 8 (a): the checkpoint's WAL ends {wal[-1:]}, expected the scale barrier to {ev_poll.k_new}")
+    ingest(ctl)
+    ctl.note_backlog(1000)
+    ev_out = ctl.autoscale()
+    check(ev_out is not None and ev_out.kind == "scale_out" and ev_out.executed,
+          f"path 8 (a): autoscale gave {ev_out}, expected an executed scale-out")
+    event(ctl, f"autoscale {ev_out.k_old}->{ev_out.k_new}")
+    ctl.note_backlog(0)
+    ev_force = ingest(ctl, force=True)
+    check(ev_force.escalation == "full" and ev_force.rebuild_state == "dispatch",
+          f"path 8 (a): the forced full rung gave {ev_force.escalation}, {ev_force.rebuild_state}")
+    ev_flight = ingest(ctl)
+    check(ev_flight.rebuilds_in_flight == 1, "path 8 (a): the rebuild must still be in flight at the kill")
+    live_events = list(ctl.events)
+    live_jsonl = ctl.events_jsonl()
+    live_rescale_ms = [s.elapsed_s * 1e3 for s in ctl.rescale_stats]
+    rf_at_kill, greedy_at_kill = len(tapped), len(greedy_tapped)
+    live_s = time.perf_counter() - t0
+
+    # The kill: what survives is the checkpoint directory (and, for the gate,
+    # the live slot arrays).
+    want = (o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy())
+    torch.cuda.synchronize()
+    held_mb = torch.cuda.memory_allocated() / 2**20
+    del ctl, eng, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed_mb = held_mb - torch.cuda.memory_allocated() / 2**20
+
+    t0 = time.perf_counter()
+    o, info = SlotCheckpoint(ck_dir, interval=CONTROL_INTERVAL, tracer=tracer, metrics_registry=reg).restore(
+        config=cfg)
+    restore_s = time.perf_counter() - t0
+    check(all(np.array_equal(a, b) for a, b in zip((o.slot_src, o.slot_dst, o.slot_valid), want)),
+          "path 8 (a): the slots restored from disk differ from the live slots at the kill")
+    eng, commit_s = synced_s(lambda: StreamingEngine.from_restored(o, **engine_kw))
+    want_pack = E.pack_slots(o.slot_src, o.slot_dst, o.slot_valid, o.regions, o.num_vertices, device=dev)
+    got_pack = E.unshard_engine_data(eng.data)
+    check(all(torch.equal(getattr(got_pack, n), getattr(want_pack, n)) for n in ("edges", "mask", "degrees")),
+          "path 8 (a): the restored engine's pack differs from pack_slots of the restored orderer")
+    del want_pack, got_pack
+    ctl = controller(o.regions)
+    ctl.attach_stream(eng)
+    ctl.attach_checkpoint(SlotCheckpoint(ck_dir, interval=CONTROL_INTERVAL, tracer=tracer, metrics_registry=reg))
+    ctl._batch_step = info["step"]  # continue the durable step numbering
+    fev, sev = ctl.report_failure([o.regions - 1], detect_s=0.0, reason="host lost at the kill",
+                                  restored_bytes=info["bytes_read"], restore_s=restore_s,
+                                  replayed_records=info["replayed"])
+    check(sev is not None and sev.executed and (fev.k_old, fev.k_new) == (o.regions + 1, o.regions)
+          and fev.seq == 0 and sev.seq == 1,
+          f"path 8 (a): report_failure gave {fev}, {sev}")
+    event(ctl, f"failure {fev.k_old}->{fev.k_new}")
+    after = [ingest(ctl, force=(i == CONTROL_AFTER - 1)) for i in range(CONTROL_AFTER)]
+    check(after[-1].rebuild_state == "dispatch", "path 8 (a): the full rung did not fire again after the restore")
+    restored_rescale_ms = [s.elapsed_s * 1e3 for s in ctl.rescale_stats]
+
+    # The logs: seqs 0..n-1 in each controller, and the JSONL round trip.
+    for name, evs, text in (("live", live_events, live_jsonl), ("restored", ctl.events, ctl.events_jsonl())):
+        check([e.seq for e in evs] == list(range(len(evs))) and events_from_jsonl(text) == evs,
+              f"path 8 (a): the {name} controller's event log is out of order or does not round-trip")
+    counters = {n: reg.counter(f"checkpoint.{n}").value for n in ("snapshots", "snapshot_bytes", "wal_records",
+                                                                  "wal_bytes", "restore_bytes")}
+    check(counters["snapshots"] > 0 and counters["wal_records"] > 0
+          and counters["restore_bytes"] == info["bytes_read"] > 0 and info["replayed"] > 0,
+          f"path 8 (a): checkpoint counters {counters}, restore {info}")
+    trace = chrome_trace(tracer)
+    problems = validate_chrome_trace(trace)
+    check(problems == [], f"path 8 (a): the Chrome trace is malformed: {problems[:5]}")
+    phases_traced = sorted({e["cat"] for e in trace["traceEvents"] if e["ph"] == "X"})
+    check({"checkpoint", "ingest", "rescale"} <= set(phases_traced), f"path 8 (a): trace phases {phases_traced}")
+
+    SRK.segment_distinct_counts = kernel
+    FRK.greedy_keys = greedy_kernel
+    selections = sum(e.escalation == "partial" and e.repair == "differential"
+                     for e in live_events + ctl.events if e.kind == "ingest")
+    check(segment_rf.launches == len(tapped) == 2 * selections and 0 < rf_at_kill < len(tapped),
+          f"path 8 (a): segment_rf launched {segment_rf.launches} times ({len(tapped)} tapped, {rf_at_kill} before "
+          f"the kill) for {selections} span selections; it must launch twice a selection, before and after the "
+          f"restore")
+    check(FRK.launches == len(greedy_tapped) and 0 < greedy_at_kill < len(greedy_tapped),
+          f"path 8 (a): the greedy kernel launched {FRK.launches} times ({greedy_at_kill} before the kill); it must "
+          f"launch before and after the restore")
+    max_err = 0
+    for i, (rows, counts) in enumerate(tapped):
+        want_counts = segment_rf.segment_distinct_counts_torch(rows)
+        max_err = max(max_err, int((counts - want_counts).abs().max()))
+        check(torch.equal(counts, want_counts), f"path 8 (a): segment_rf launch {i} differs from the plain version")
+    greedy = [greedy_against_mirror(FRK, rec) for rec in greedy_tapped]
+    check(all(x["exact"] for x in greedy), f"path 8 (a): a greedy launch differs from the host mirror: {greedy}")
+    read = dict(
+        live_s=live_s, restore_s=restore_s, restore_bytes_read=info["bytes_read"], wal_replayed=info["replayed"],
+        restore_step=info["step"], manifest_step=info["manifest_step"], from_restored_ms=commit_s * 1e3,
+        rescale_ms=dict(poll=live_rescale_ms[0], autoscale=live_rescale_ms[1], failure=restored_rescale_ms[0]),
+        rescales=[f"{e.k_old}->{e.k_new}" for e in live_events + ctl.events if e.kind in ("scale_in", "scale_out")],
+        events=len(live_events) + len(ctl.events), checks=len(checks), checkpoint=counters,
+        freed_at_kill_mb=freed_mb, trace_phases=phases_traced, trace_events=len(trace["traceEvents"]),
+        launches=dict(segment_rf=[rf_at_kill, len(tapped) - rf_at_kill],
+                      full_reorder=[greedy_at_kill, len(greedy_tapped) - greedy_at_kill]),
+        selections=selections, segment_rf_max_abs_err=max_err, greedy=greedy)
+    log(f"path 8 (a): {len(checks)} bit-identity checks passed ({', '.join(checks)}); restore from disk "
+        f"{restore_s:.3f} s ({info['bytes_read']} B, {info['replayed']} WAL records replayed onto manifest "
+        f"{info['manifest_step']}), byte-equal to the live slots at the kill; from_restored {commit_s * 1e3:.3f} ms, "
+        f"pack equal to pack_slots; rescales {read['rescales']} in {read['rescale_ms']} ms; checkpoint {counters}; "
+        f"segment_rf {read['launches']['segment_rf']} launches before / after the restore, each exact; greedy "
+        f"{read['launches']['full_reorder']}, each equal to the host mirror; {freed_mb:.1f} MB freed at the kill; "
+        f"trace {len(trace['traceEvents'])} events, valid")
+    return read
+
+
+def control_drill(tag: str, backend: str, live_devices: list, recover_devices: list, graph) -> dict:
+    """Path 8 (b), or (c) over NCCL: ``tests/torch_faults_harness.py``'s
+    SIGKILL drill on the ranks of ``live_devices`` (2 processes x 2), at path
+    4's graph, then the recovery on ``recover_devices`` (2 ranks). Gates: the
+    restore point and the final slots of both recovery ranks byte-equal to
+    the no-failure host oracle (the harness's ``drill_oracle``), the final
+    pack reassembled from their row blocks byte-equal to the oracle's, the
+    detection within the lease + 2 s, the two ranks' event logs equal, and
+    the rescale's bytes sent and received equal to its cross-rank bytes.
+    Returns readings."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_faults_harness as FH
+
+    from repro_torch.graphs import engine as E
+
+    g, src, dst = graph
+    run_dir = ROOT / "build" / "control" / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    inputs = run_dir / "graph.npz"
+    np.savez(inputs, src=src, dst=dst, base_src=g.src, base_dst=g.dst, num_vertices=g.num_vertices)
+    t0 = time.perf_counter()
+    res = FH.run_drill(run_dir / "shared", run_dir / "out", device=torch.device(live_devices[0]).type,
+                       backend=backend, live_devices=live_devices, recover_devices=recover_devices,
+                       batch=RUNGS_BATCH, graph=str(inputs))
+    wall = time.perf_counter() - t0
+    for p in res["live"].procs + res["recover"].procs:
+        for line in p.stdout.splitlines():
+            if "live: batch" not in line:
+                log(f"path 8 ({tag}) {line}")
+    recs, arrays = res["records"], res["arrays"]
+    last = recs[0]["restore"]["step"]
+    check(FH.KILL_STEP <= last < FH.BATCHES - 1,
+          f"path 8 ({tag}): restored to batch {last}, expected a tail of batches to finish")
+    t1 = time.perf_counter()
+    oracle, point = FH.drill_oracle(last, batch=RUNGS_BATCH, graph=str(inputs))
+    oracle_s = time.perf_counter() - t1
+    for r, a in enumerate(arrays):
+        check(all(np.array_equal(x, y) for x, y in zip((a["restore_src"], a["restore_dst"], a["restore_valid"]),
+                                                       point)),
+              f"path 8 ({tag}) rank {r}: the restore point differs from the no-failure oracle's")
+        check(all(np.array_equal(x, y) for x, y in zip((a["final_src"], a["final_dst"], a["final_valid"]),
+                                                       (oracle.slot_src, oracle.slot_dst, oracle.slot_valid))),
+              f"path 8 ({tag}) rank {r}: the final slots differ from the no-failure oracle's")
+    want_e, want_m, _ = E.host_pack_slots(oracle.slot_src, oracle.slot_dst, oracle.slot_valid, oracle.regions,
+                                          oracle.num_vertices)
+    got_e, got_m = FH.reassemble(recs, arrays)
+    check(got_e.tobytes() == want_e.tobytes() and got_m.tobytes() == want_m.tobytes(),
+          f"path 8 ({tag}): the final pack, reassembled from the ranks' rows, differs from the oracle's pack")
+    check(0.0 < res["detect_s"] <= FH.LEASE_S + 2.0, f"path 8 ({tag}): detection took {res['detect_s']:.3f} s")
+    check(recs[0]["events_jsonl"] == recs[1]["events_jsonl"],
+          f"path 8 ({tag}): the recovery ranks' event logs differ")
+    moved = [r["scale_event"] for r in recs]
+    check(sum(m["sent_bytes"] for m in moved) == sum(m["received_bytes"] for m in moved)
+          == moved[0]["cross_device_bytes"] > 0 and all(r["k_final"] == FH.K_RECOVER for r in recs),
+          f"path 8 ({tag}): the failure shrink moved {moved}")
+    check(all(p.returncode == -9 for p in res["live"].procs[2:]), f"path 8 ({tag}): process 1 was not SIGKILLed")
+    read = dict(ranks_live=len(live_devices), ranks_recover=len(recover_devices), backend=backend,
+                devices=sorted(set(live_devices)), wall_s=wall, live_s=res["live_s"], recover_s=res["recover_s"],
+                startup_s=res["startup_s"],
+                detect_s=res["detect_s"], restore_step=last, manifest_step=recs[0]["restore"]["manifest_step"],
+                wal_replayed=recs[0]["restore"]["replayed"], restore_bytes_read=recs[0]["restore"]["bytes_read"],
+                restore_s_by_rank=[r["restore_s"] for r in recs], from_restored_ms_by_rank=[r["commit_s"] * 1e3
+                                                                                            for r in recs],
+                rescale_ms_by_rank=[r["scale_event"]["ms"] for r in recs],
+                rescale_sent_by_rank=[r["scale_event"]["sent_bytes"] for r in recs],
+                rescale_cross_device_bytes=moved[0]["cross_device_bytes"],
+                continue_s_by_rank=[r["continue_s"] for r in recs], oracle_s=oracle_s,
+                peak_rss_mb_by_rank=[r["peak_rss_mb"] for r in recs], events=recs[0]["event_kinds"])
+    log(f"path 8 ({tag}): live {len(live_devices)} ranks over {backend}, process 1 SIGKILLed after batch "
+        f"{FH.KILL_STEP}, detected in {res['detect_s']:.3f} s; recovery on {len(recover_devices)} ranks "
+        f"restored batch {last} (manifest {read['manifest_step']}, {read['wal_replayed']} WAL records, "
+        f"{read['restore_bytes_read']} B) in {[round(x, 3) for x in read['restore_s_by_rank']]} s, from_restored "
+        f"{[round(x, 3) for x in read['from_restored_ms_by_rank']]} ms, 8 -> 4 in "
+        f"{[round(x, 3) for x in read['rescale_ms_by_rank']]} ms ({read['rescale_cross_device_bytes']} B across "
+        f"ranks); restore point, final slots and final pack byte-equal to the no-failure oracle; {wall:.3f} s in all")
+    return read
 
 
 def main() -> int:
@@ -1522,8 +1855,8 @@ def main() -> int:
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
     ap.add_argument("--edge-factor", type=int, default=16, help="RMAT edges sampled per vertex")
     ap.add_argument("--cards", type=int, default=1,
-                    help="4: only slice 1, path 5 (a) and (c), path 6 (c) and path 7 (c), (c) being g = 4 ranks "
-                         "over NCCL, one card each")
+                    help="4: only slice 1, path 5 (a) and (c), and paths 6 (c), 7 (c) and 8 (c), (c) being g = 4 "
+                         "ranks over NCCL, one card each")
     ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
     ap.add_argument("--stream-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 6
     ap.add_argument("--oc-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 7
@@ -1607,7 +1940,7 @@ def main() -> int:
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), path 6 (c) and path 7 (c) only
+    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), paths 6 (c), 7 (c) and 8 (c) only
         # ------------------------------------------------ kernel parity: segment_rf
         rng = np.random.default_rng(0)
         cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
@@ -1844,6 +2177,15 @@ def main() -> int:
         check(parent == dict.fromkeys(KERNELS, 0), f"path 7 ({tag}): the parent launched {parent}, expected none")
         return read
 
+    def run_control_drill(tag, backend, live_devices, recover_devices, graph) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = control_drill(tag, backend, live_devices, recover_devices, graph)
+        phases[f"control_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 8 ({tag}): the parent launched {parent}, expected none")
+        return read
+
     def check_streamrank(read: dict) -> None:
         a, b = read["a"], read["b"]
         check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
@@ -1873,6 +2215,9 @@ def main() -> int:
         # Path 7 (c): the out-of-core pipeline over NCCL, one card a rank.
         outofcore_read = {"c": run_outofcore("c_g4_nccl_4cards", "nccl", cards)}
         log(json.dumps({"outofcore": outofcore_read}))
+        # Path 8 (c): the SIGKILL drill over NCCL, one card a rank.
+        control_read = {"c": run_control_drill("c_g4_nccl_4cards", "nccl", cards, cards[:2], g14)}
+        log(json.dumps({"control": control_read}))
         log(json.dumps({"multirank": multirank_read, "streamrank": streamrank_read, "phases": phases}))
         log(f"card: {card}")
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2061,7 +2406,6 @@ def main() -> int:
         "b": run_streamrank("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_B, streamrank_inputs(g14),
                             g14[0].num_vertices),
     }
-    del g14
     check_streamrank(streamrank_read)
     streamrank_rows = streamrank_read["b"].pop("rows")
     streamrank_read["a"].pop("rows", None)
@@ -2071,6 +2415,30 @@ def main() -> int:
     # ------------------------------------------- path 7: the out-of-core pipeline
     # (a) g = 4 over gloo, 2 processes x 2 ranks, every rank on the one card.
     outofcore_read = {"a": run_outofcore("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4)}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- path 8: the control plane
+    # (a) one rank in this process, the kernels tapped; (b) the SIGKILL drill
+    # over 4 gloo ranks on the one card, recovered on 2.
+    reset_launches()
+    t0 = time.perf_counter()
+    control_read = {"a": control_path(dev, g14, segment_rf)}
+    torch.cuda.synchronize()
+    phases["control_a_s"] = time.perf_counter() - t0
+    control_launches = read_launches()
+    ca = control_read["a"]["launches"]
+    check(control_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(ca["segment_rf"]),
+                               "full_reorder": sum(ca["full_reorder"])},
+          f"path 8 (a) launched {control_launches}, expected segment_rf {sum(ca['segment_rf'])} times, the greedy "
+          f"kernel {sum(ca['full_reorder'])} times, and nothing else")
+    log(f"path 8 (a): {phases['control_a_s']:.3f} s, launches {control_launches}")
+    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                              control_read["a"].pop("segment_rf_max_abs_err"))
+    control_read["b"] = run_control_drill("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, ["cuda:0"] * 2, g14)
+    del g14
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------ kernel times vs bounds
     rows16 = ops.packed_rows(packs[16].edges, packs[16].mask)
@@ -2236,6 +2604,9 @@ def main() -> int:
                                         "full_reorder": sum(read["greedy_launches"])}
         report["segment_rf"][f"streamrank_{tag}_by_rank"] = read["segment_rf_launches"]
         report["full_reorder"][f"streamrank_{tag}_by_rank"] = read["greedy_launches"]
+    by_path["control_a"] = control_launches  # path 8 (a), in this process; (b) launches nothing
+    report["segment_rf"]["control_a_before_after_restore"] = control_read["a"]["launches"]["segment_rf"]
+    report["full_reorder"]["control_a_before_after_restore"] = control_read["a"]["launches"]["full_reorder"]
     for tag, read in outofcore_read.items():  # path 7: the same
         by_path[f"outofcore_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
                                        "full_reorder": sum(read["greedy_launches"])}
@@ -2248,6 +2619,7 @@ def main() -> int:
     log(json.dumps({"multirank": multirank_read}))
     log(json.dumps({"streamrank": streamrank_read}))
     log(json.dumps({"outofcore": outofcore_read}))
+    log(json.dumps({"control": control_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]
@@ -2274,7 +2646,7 @@ def main() -> int:
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
-            **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_", "outofcore_"))},
+            **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_", "outofcore_", "control_"))},
         })
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

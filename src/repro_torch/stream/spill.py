@@ -21,10 +21,10 @@ granularity the slot layout already has:
   path owns the stream-of-updates tail under a memory bound, the same
   split the escalation ladder already makes (DESIGN.md §9/§11).
 
-Counters (``spill_counters``) ride on every IngestEvent the JAX package's
-elastic controller emits, so spill/fault traffic is visible in the same event
-log as escalations and rebuilds. The port has no controller yet: its callers
-call ``OutOfCoreIngestor.ingest`` and read ``spill_counters`` themselves.
+Counters (``spill_counters``) ride on every IngestEvent the elastic
+controller emits (``ElasticController.attach_stream`` / ``ingest``), so
+spill/fault traffic is visible in the same event log as escalations and
+rebuilds.
 """
 from __future__ import annotations
 

@@ -792,3 +792,156 @@ def test_stream_engine_over_ranks_on_the_card(cuda, tmp_path, backend, n_procs, 
         selections = c["span_selections"] + c["full_selections"]
         assert selections > 0 and c["segment_rf_launches"] == c["objective_calls"] == 2 * selections
         assert meta["D_equal_to_A"] == {"edges": True, "mask": True, "degrees": True}
+
+
+# ----------------------------------------------------------- control plane
+def _control_run(tmp_path, span_repair, full_rebuild):
+    """An ``ElasticController`` with a ``SlotCheckpoint`` driving a
+    ``StreamingEngine`` on the card (RMAT-10, 6 regions): three batches, a
+    host lost to ``poll``, the full rung forced and one batch in flight.
+    Returns (controller, orderer, config, engine keywords, clock)."""
+    from repro_torch.checkpoint import SlotCheckpoint
+    from repro_torch.elastic.controller import ElasticController
+    from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
+
+    g = rmat_graph(10, 8, seed=0)
+    order = ordering.geo_order(g, seed=0, k_min=4, k_max=32)
+    cfg = StreamConfig(partial_drift=1.0, full_drift=99.0, span_regions=2, k_min=4, k_max=32)
+    o = IncrementalOrderer(g.src[order], g.dst[order], g.num_vertices, regions=6, config=cfg)
+    kw = dict(span_repair=span_repair, full_rebuild=full_rebuild, rebuild_flight=2)
+    eng = StreamingEngine(o, **kw)
+    t = [0.0]
+    ctl = ElasticController(6, dead_after_s=5.0, clock=lambda: t[0])
+    ctl.attach_stream(eng)
+    ctl.attach_checkpoint(SlotCheckpoint(tmp_path / "ckpt", interval=3))  # snapshots at 0 and 3, step 4 in the WAL
+    stream = SyntheticStream(g, batch_size=128, seed=3)
+    for b in range(5):
+        t[0] += 1.0
+        for h in range(5 if b else 6):
+            ctl.heartbeat(h, b)
+        if b == 2:
+            t[0] += 5.0
+            for h in range(5):
+                ctl.heartbeat(h, b)
+            assert ctl.poll().executed  # host 5 went silent: 6 → 5
+        if b == 3:
+            o.drift = lambda: 200.0
+        ctl.ingest(stream.batch())
+        if b == 3:
+            del o.drift
+        eng.verify_bit_identity()
+    assert eng.rebuilds_in_flight == 1
+    return ctl, o, cfg, kw, stream
+
+
+@pytest.mark.parametrize("span_repair,full_rebuild", [("differential", "device"), ("device", "device"),
+                                                      ("oracle", "geo")])
+def test_controller_driven_engine_on_cuda_restores_from_disk(cuda, tmp_path, span_repair, full_rebuild):
+    """A controller-driven engine on the card, killed with a rebuild in
+    flight: the checkpoint restores the live slots exactly, ``from_restored``
+    commits them to the card equal to ``pack_slots``, and a reported failure
+    rescales the restored engine on the card, bit-identical afterwards."""
+    from repro_torch.checkpoint import SlotCheckpoint
+    from repro_torch.elastic.controller import ElasticController
+    from repro_torch.stream import StreamingEngine
+
+    ctl, o, cfg, kw, stream = _control_run(tmp_path, span_repair, full_rebuild)
+    want = (o.slot_src.copy(), o.slot_dst.copy(), o.slot_valid.copy())
+    torch.cuda.synchronize()
+    del ctl, o
+    o2, info = SlotCheckpoint(tmp_path / "ckpt").restore(config=cfg)
+    assert all(np.array_equal(a, b) for a, b in zip((o2.slot_src, o2.slot_dst, o2.slot_valid), want))
+    assert info["replayed"] >= 1
+    eng2 = StreamingEngine.from_restored(o2, **kw)
+    assert eng2.data.edges.device.type == "cuda" and eng2.rebuilds_in_flight == 0
+    pack = E.pack_slots(o2.slot_src, o2.slot_dst, o2.slot_valid, o2.regions, o2.num_vertices, device="cuda")
+    got = E.unshard_engine_data(eng2.data)
+    assert all(torch.equal(getattr(got, n), getattr(pack, n)) for n in ("edges", "mask", "degrees"))
+    ctl2 = ElasticController(o2.regions)
+    ctl2.attach_stream(eng2)
+    fev, sev = ctl2.report_failure([o2.regions - 1], restored_bytes=info["bytes_read"])
+    assert sev.executed and eng2.k == o2.regions == fev.k_new
+    ctl2.ingest(stream.batch())
+    eng2.verify_bit_identity()
+
+
+def test_kill_mid_flight_then_the_ladder_fires_again_on_cuda(cuda, tmp_path):
+    """Span ``differential`` and full ``device``: every ``segment_rf`` launch
+    (two a span selection) exact against its plain version and every greedy
+    launch equal to the host mirror, before the kill and after the restore,
+    where both rungs fire again on the card."""
+    from repro_torch.checkpoint import SlotCheckpoint
+    from repro_torch.elastic.controller import ElasticController
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import span_reorder as SRK
+    from repro_torch.stream import StreamingEngine
+
+    rf_kernel, greedy_kernel, rf_tapped, greedy_tapped = SRK.segment_distinct_counts, FRK.greedy_keys, [], []
+
+    def rf_tap(rows):
+        counts = rf_kernel(rows)
+        rf_tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    def greedy_tap(u, v, valid, nv, alpha, beta, delta, permpos):
+        keys, steps, work = greedy_kernel(u, v, valid, nv, alpha, beta, delta, permpos)
+        greedy_tapped.append((u.clone(), v.clone(), valid.clone(), nv, (alpha, beta, delta), permpos.clone(),
+                              keys.clone(), steps.clone()))
+        return keys, steps, work
+
+    SRK.segment_distinct_counts, FRK.greedy_keys = rf_tap, greedy_tap
+    rf_before, greedy_before = segment_rf.launches, FRK.launches
+    try:
+        ctl, o, cfg, kw, stream = _control_run(tmp_path, "differential", "device")
+        at_kill = (len(rf_tapped), len(greedy_tapped))
+        torch.cuda.synchronize()
+        del ctl, o
+        o2, info = SlotCheckpoint(tmp_path / "ckpt").restore(config=cfg)
+        eng2 = StreamingEngine.from_restored(o2, **kw)
+        ctl2 = ElasticController(o2.regions)
+        ctl2.attach_stream(eng2)
+        ev = ctl2.ingest(stream.batch())
+        assert ev.escalation == "partial" and ev.repair == "differential"
+        o2.drift = lambda: 200.0
+        ev = ctl2.ingest(stream.batch())
+        del o2.drift
+        assert ev.escalation == "full" and ev.rebuild_state == "dispatch"
+        eng2.verify_bit_identity()
+    finally:
+        SRK.segment_distinct_counts, FRK.greedy_keys = rf_kernel, greedy_kernel
+    assert 0 < at_kill[0] < len(rf_tapped) and 0 < at_kill[1] < len(greedy_tapped)
+    assert segment_rf.launches - rf_before == len(rf_tapped) and FRK.launches - greedy_before == len(greedy_tapped)
+    for rows, counts in rf_tapped:
+        assert torch.equal(counts, segment_rf.segment_distinct_counts_torch(rows))
+    for u, v, valid, nv, params, permpos, keys, steps in greedy_tapped:
+        host, host_steps = FRK._full_order_host(u.cpu().numpy().astype(np.int64), v.cpu().numpy().astype(np.int64),
+                                                valid.cpu().numpy(), nv, *params,
+                                                permpos.cpu().numpy().astype(np.int64))
+        k = keys.cpu().numpy()
+        assert np.array_equal(np.lexsort((np.arange(u.shape[0]), k[3], k[2], k[1], k[0])), host)
+        assert int(steps[0]) == host_steps
+
+
+def test_sigkill_drill_on_the_card(cuda, tmp_path):
+    """``tests/torch_faults_harness.py``'s drill with every rank on the one
+    card over gloo: process 1's ranks SIGKILLed after batch 5, recovery on 2
+    ranks; restore point, final slots and final pack byte-equal to the
+    no-failure host oracle."""
+    import torch_faults_harness as FH
+
+    res = FH.run_drill(tmp_path / "shared", tmp_path / "out", device="cuda", backend="gloo",
+                       live_devices=["cuda:0"] * 4, recover_devices=["cuda:0"] * 2)
+    last = res["records"][0]["restore"]["step"]
+    assert FH.KILL_STEP <= last < FH.BATCHES - 1 and 0.0 < res["detect_s"] <= FH.LEASE_S + 2.0
+    oracle, point = FH.drill_oracle(last)
+    for a in res["arrays"]:
+        assert all(np.array_equal(x, y) for x, y in zip((a["restore_src"], a["restore_dst"], a["restore_valid"]),
+                                                        point))
+        assert all(np.array_equal(x, y) for x, y in zip((a["final_src"], a["final_dst"], a["final_valid"]),
+                                                        (oracle.slot_src, oracle.slot_dst, oracle.slot_valid)))
+    want_e, want_m, _ = E.host_pack_slots(oracle.slot_src, oracle.slot_dst, oracle.slot_valid, 4,
+                                          oracle.num_vertices)
+    got_e, got_m = FH.reassemble(res["records"], res["arrays"])
+    assert got_e.tobytes() == want_e.tobytes() and got_m.tobytes() == want_m.tobytes()
+    assert res["records"][0]["events_jsonl"] == res["records"][1]["events_jsonl"]
+    assert all(r["group"][2] == "cuda:0" for r in res["records"])

@@ -41,6 +41,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.stream.ingest", "repro_torch.launch.mesh", "repro_torch.launch.multihost",
         "repro_torch.obs.metrics", "repro_torch.data", "repro_torch.data.shards", "repro_torch.data.pipeline",
         "repro_torch.core.hier_order", "repro_torch.stream.spill",
+        "repro_torch.elastic.controller", "repro_torch.elastic.autoscale", "repro_torch.elastic.resharder",
+        "repro_torch.elastic.expert_place", "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+        "repro_torch.obs.log", "repro_torch.obs.trace_export",
     } <= set(result["modules"])
 
 

@@ -63,3 +63,127 @@ def test_record_peak_rss_publishes_the_reader(index, count):
     assert snap[f"process.peak_rss_mb.p{index}"] == pytest.approx(mb) and mb > 0
     assert OM.peak_rss_mb() >= mb
     assert all(snap[f"process.peak_rss_mb.p{i}"] == 0.0 for i in range(count) if i != index)
+
+
+# --------------------------------------------- trace export and event logs
+# ``obs/trace_export.py`` and ``obs/log.py`` are copies of the reference's:
+# the same tracer spans export to the same trace structure, and the same
+# events serialize to the same JSONL, in either package.
+from repro.obs import log as J_OL  # noqa: E402
+from repro.obs import trace as J_OT  # noqa: E402
+from repro.obs import trace_export as J_OX  # noqa: E402
+from repro_torch.obs import log as OL  # noqa: E402
+from repro_torch.obs import trace as OT  # noqa: E402
+from repro_torch.obs import trace_export as OX  # noqa: E402
+
+
+def _traced(n=3, process=0, T=OT, X=OX):
+    t = T.Tracer(capacity=64)
+    for i in range(n):
+        with t.span(f"ingest.batch{i}"):
+            pass
+        with t.span("rung.monitor"):
+            pass
+    return X.chrome_trace(t, process=process, process_name=f"proc{process}")
+
+
+def _shape(trace):
+    """A trace without its times: what two runs of one script share."""
+    return [{k: v for k, v in e.items() if k not in ("ts", "dur")} for e in trace["traceEvents"]], \
+        {k: v for k, v in trace["otherData"].items()}
+
+
+def test_chrome_trace_structure_equals_reference():
+    tr = _traced(n=2)
+    assert OX.validate_chrome_trace(tr) == []
+    events = tr["traceEvents"]
+    xs = [e for e in events if e["ph"] == "X"]
+    assert len(xs) == 4 and {e["name"] for e in events if e["ph"] == "M"} == {"process_name", "thread_name"}
+    assert {e["args"]["name"] for e in events if e["name"] == "thread_name"} == {"ingest", "rung"}
+    assert len({e["cat"]: e["tid"] for e in xs}) == 2
+    assert all(isinstance(e["ts"], float) and e["dur"] >= 0.0 for e in xs)
+    assert _shape(tr) == _shape(_traced(n=2, T=J_OT, X=J_OX))
+
+
+def test_merge_rebases_and_keeps_pids():
+    merged = OX.merge_traces([_traced(process=0), _traced(process=1)])
+    assert OX.validate_chrome_trace(merged) == []
+    xs = [e for e in merged["traceEvents"] if e["ph"] == "X"]
+    assert {e["pid"] for e in xs} == {0, 1} and min(e["ts"] for e in xs) == 0.0
+    assert merged["otherData"]["p0.spans_recorded"] == merged["otherData"]["p1.spans_recorded"] == 6
+    assert J_OX.validate_chrome_trace(merged) == []
+
+
+def test_write_is_plain_json(tmp_path):
+    import json
+
+    p = tmp_path / "trace.json"
+    OX.write_chrome_trace(str(p), _traced())
+    assert OX.validate_chrome_trace(json.loads(p.read_text())) == []
+
+
+@pytest.mark.parametrize("bad,problem", [
+    ([], "trace is not a JSON object"),
+    ({"traceEvents": []}, "traceEvents missing or empty"),
+    ({"traceEvents": [{"ph": "X", "name": "a", "pid": 0, "tid": 0, "ts": 0.0, "dur": -1.0}]}, "negative dur"),
+    ({"traceEvents": [{"ph": "M", "name": "process_name", "pid": 0, "tid": 0}]}, "no complete ('X') span events"),
+    ({"traceEvents": [{"ph": "B", "name": "a", "pid": 0, "tid": 0}]}, "unsupported ph"),
+    ({"traceEvents": [{"ph": "X", "name": "a", "tid": 0, "ts": 0.0, "dur": 1.0}]}, "missing pid"),
+])
+def test_validate_rejects_malformed_as_the_reference(bad, problem):
+    got = OX.validate_chrome_trace(bad)
+    assert any(problem in p for p in got) and got == J_OX.validate_chrome_trace(bad)
+
+
+def _events(C):
+    """A log of every event kind from controller module ``C`` (no engine)."""
+    t = [0.0]
+    ctl = C.ElasticController(4, clock=lambda: t[0], dead_after_s=1.0)
+    ctl.add_hosts(2)
+    t[0] = 2.0
+    ctl.poll()
+    ctl.report_failure([0], detect_s=0.25, restored_bytes=10, restore_s=0.5, replayed_records=1)
+    rebuild = C.RebuildEvent(
+        kind="full_rebuild", mode="device", committed=True, aborted=False, snapshot_edges=10, replayed_batches=2,
+        splice_ops=3, flight_batches=2, dispatch_s=0.1, commit_s=0.2, seq=ctl._next_seq())
+    ingest = C.IngestEvent(kind="ingest", inserted=3, deleted=1, skipped=0, escalation="partial", num_edges=9,
+                           elapsed_s=0.3, monitor_s=0.1, seq=ctl._next_seq(), repair="device", rung_count=1,
+                           rung_total_s=0.1, program_cache={"scatter": {"hits": 1, "misses": 1, "evictions": 0}},
+                           spill={"spills": 1})
+    return ctl.events + [rebuild, ingest]
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["timings", "drop-timings"])
+def test_events_jsonl_round_trip_equals_reference(drop):
+    from repro.elastic import controller as J_ec
+    from repro_torch.elastic import controller as ec
+
+    events, jevents = _events(ec), _events(J_ec)
+    text = OL.events_jsonl(events, drop_timings=drop)
+    assert text == J_OL.events_jsonl(jevents, drop_timings=drop)
+    assert {type(e).__name__ for e in OL.events_from_jsonl(text)} == {"ScaleEvent", "FailureEvent", "RebuildEvent",
+                                                                      "IngestEvent"}
+    back = OL.events_from_jsonl(text)
+    assert [e.seq for e in back] == list(range(len(events)))
+    if not drop:
+        assert back == events
+    else:
+        import json
+
+        for line in text.splitlines():
+            d = json.loads(line)
+            assert all(v == 0.0 for k, v in d.items() if k.endswith("_s") and isinstance(v, float))
+
+
+def test_unknown_event_type_rejected():
+    with pytest.raises(ValueError, match="unknown event type"):
+        OL.event_from_dict({"event": "MysteryEvent"})
+
+
+def test_obs_package_exports_the_references_names():
+    import repro.obs as J_obs
+    import repro_torch.obs as obs
+
+    names = [n for n in dir(J_obs) if not n.startswith("_") and n not in ("log", "metrics", "trace",
+                                                                            "trace_export")]
+    assert all(hasattr(obs, n) for n in names)

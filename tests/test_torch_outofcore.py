@@ -472,6 +472,61 @@ def test_data_pipeline_batches_equal_reference():
     assert plan.migrated_edges <= 64 * 0.6
 
 
+def test_controller_ingest_event_carries_spill_counters():
+    """An ``OutOfCoreIngestor`` behind the port's elastic controller: every
+    IngestEvent's ``spill`` dict carries the store counters and the resident
+    size, and the log equals the reference controller's over the reference
+    ingestor on the same batches (timings dropped)."""
+    from repro.elastic import controller as J_ec
+    from repro_torch.elastic import controller as ec
+
+    ctls = []
+    for C, I, Cfg, Batch in ((ec, OutOfCoreIngestor, SpillConfig, EdgeUpdateBatch),
+                             (J_ec, J_spill.OutOfCoreIngestor, J_spill.SpillConfig, J_upd.EdgeUpdateBatch)):
+        ing = I(1000, regions=12, slots_per_region=16, config=Cfg(max_resident=2))
+        ctl = C.ElasticController(4)
+        ctl.attach_stream(ing)
+        rng = np.random.default_rng(3)
+        for b in range(4):
+            ins = rng.integers(0, 1000, size=(40, 2))
+            ev = ctl.ingest(Batch(insert=ins[ins[:, 0] != ins[:, 1]], delete=np.empty((0, 2), np.int64)))
+        assert ev.kind == "ingest" and ev.escalation == "none"
+        assert set(ev.spill) == {"spills", "faults", "bytes_spilled", "bytes_faulted", "resident"}
+        assert ev.spill["resident"] <= 2 and ev.spill["spills"] > 0
+        assert [e.seq for e in ctl.events] == list(range(len(ctl.events)))
+        ctls.append(ctl)
+    assert ctls[0].events_jsonl(drop_timings=True) == ctls[1].events_jsonl(drop_timings=True)
+
+
+@pytest.mark.parametrize("cfg", [
+    HO.HierConfig(num_chunks=4, max_chunk_edges=1 << 10, seam_window=0, seed=0, chunk_mode="mirror"),
+    HO.HierConfig(num_chunks=3, max_chunk_edges=1 << 11, seam_window=64, seed=2, chunk_mode="mirror"),
+    HO.HierConfig(num_chunks=4, max_chunk_edges=1 << 10, seam_window=0, seed=1, chunk_mode="host"),
+], ids=["mirror", "mirror-seams", "host"])
+def test_pooled_mirror_order_equals_the_serial_composition(cfg):
+    """``pooled_mirror_order`` (chunks in a spawned process pool, as
+    ``chip_smoke.py``'s path 7 computes its oracle) is byte-equal to the
+    serial ``hier_order_edges`` on the same edges and sample."""
+    import concurrent.futures
+    import multiprocessing
+
+    plan = DS.RmatShardPlan(scale=11, edge_factor=8, seed=0, num_shards=4)
+    edges = np.concatenate([DS.shard_edges(plan, s) for s in range(plan.num_shards)])
+    sample = DS.sample_edges(plan, 2)
+    want, winfo = HO.hier_order_edges(edges, plan.num_vertices, cfg, sample=sample)
+    with concurrent.futures.ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn")) as pool:
+        got, info = OH.pooled_mirror_order(edges, plan.num_vertices, cfg, sample, pool)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    assert info["chunk_sizes"] == winfo["chunk_sizes"] and np.array_equal(info["splits"], winfo["splits"])
+    assert info["num_chunks"] == winfo["num_chunks"] > 1
+
+
+def test_pooled_mirror_order_refuses_the_device_chunk_mode():
+    with pytest.raises(ValueError, match="device"):
+        OH.pooled_mirror_order(np.zeros((4, 2), np.int64), 8, HO.HierConfig(chunk_mode="device"),
+                               np.zeros((4, 2), np.int64), None)
+
+
 # =================================================== 2 × 2 gloo cluster
 @pytest.fixture(scope="module")
 def cluster(tmp_path_factory):
@@ -615,6 +670,7 @@ def test_stream_phase_deterministic_and_spill_bounded(cluster):
     assert s["peak_resident"] <= OH.SPILL_RESIDENT and s["resident"] <= OH.SPILL_RESIDENT
     assert s["spill"]["spills"] > 0 and set(s["spill"]) == {"spills", "faults", "bytes_spilled", "bytes_faulted",
                                                              "resident"}
+    assert s["seqs"] == list(range(OH.STREAM_BATCHES))  # one IngestEvent a batch, through the controller
     ing = OutOfCoreIngestor(OH.PLAN.num_vertices, OH.SPILL_REGIONS, OH.SPILL_SPR,
                             config=SpillConfig(max_resident=OH.SPILL_RESIDENT))
     for b in range(OH.STREAM_BATCHES):  # the same script in this process

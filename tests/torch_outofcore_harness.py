@@ -19,13 +19,17 @@ does over its processes:
 * **rescale** (phase C) — ``ElasticRescaler.execute`` 8 → 12 → 8 on the
   committed pack across the ranks, both re-checked through ``segment_rf``;
 * **stream** (phase D) — a bounded-memory ``OutOfCoreIngestor`` (the spill
-  layer) ingests stateless ``stream_edges`` batches. It is called directly:
-  the JAX package routes it through its elastic controller, which the port
-  does not have yet.
+  layer) behind ``ElasticController.attach_stream`` ingests stateless
+  ``stream_edges`` batches through ``ElasticController.ingest``; the spill
+  counters are read off the last ``IngestEvent``, as the JAX package's
+  harness reads them.
 
 The rank writes its row blocks and a JSON of readings; the parent reassembles
 the blocks and holds them against the JAX package's in-core oracle
 (``hier_order_edges`` + ``pack_slots``).
+
+``pooled_mirror_order`` is that in-core composition with its chunks ordered
+in a process pool: ``chip_smoke.py``'s path 7 computes its oracle with it.
 """
 from __future__ import annotations
 
@@ -137,21 +141,74 @@ def commit_pack(mat: ChunkMaterializer, group, k: int = K_PACK):
 
 
 def stream_phase(plan=PLAN) -> dict:
-    """Phase D: the bounded-memory ingest tail. Every rank runs the identical
-    deterministic script; the parent holds the ranks' states equal."""
+    """Phase D: the bounded-memory ingest tail, through the elastic
+    controller. Every rank runs the identical deterministic script; the
+    parent holds the ranks' states equal."""
+    from repro_torch.elastic.controller import ElasticController
     from repro_torch.stream import EdgeUpdateBatch, OutOfCoreIngestor, SpillConfig
 
     ing = OutOfCoreIngestor(plan.num_vertices, SPILL_REGIONS, SPILL_SPR,
                             config=SpillConfig(max_resident=SPILL_RESIDENT))
+    ctl = ElasticController(1)
+    ctl.attach_stream(ing)
     inserted = skipped = peak_resident = 0
     for b in range(STREAM_BATCHES):
-        st = ing.ingest(EdgeUpdateBatch(insert=DS.stream_edges(plan, b, STREAM_BATCH_SIZE),
+        ev = ctl.ingest(EdgeUpdateBatch(insert=DS.stream_edges(plan, b, STREAM_BATCH_SIZE),
                                         delete=np.empty((0, 2), np.int64)))
-        inserted += st.inserted
-        skipped += st.skipped
-        peak_resident = max(peak_resident, ing.store.resident)
+        inserted += ev.inserted
+        skipped += ev.skipped
+        peak_resident = max(peak_resident, ev.spill["resident"])
     return dict(num_edges=ing.num_edges, inserted=inserted, skipped=skipped, resident=ing.store.resident,
-                peak_resident=peak_resident, spill=ing.spill_counters, batches=STREAM_BATCHES)
+                peak_resident=peak_resident, spill=dict(ctl.events[-1].spill), batches=STREAM_BATCHES,
+                seqs=[e.seq for e in ctl.events])
+
+
+def order_chunk(block: np.ndarray, cfg, seed: int) -> np.ndarray:
+    """One chunk's ``order_edge_block`` permutation; a module-level function,
+    so a spawned pool worker can import it."""
+    return HO.order_edge_block(block, cfg, seed=seed)
+
+
+def geo_rf_by_k(edges: np.ndarray, num_vertices: int, ks) -> tuple[int, dict]:
+    """The quality reading's yardstick: host ``geo_order`` of the edge list
+    deduplicated (first occurrences, in order), and its RF at each k.
+    Returns ``(unique edges, {k: RF})``; a module-level function, so a pool
+    worker can run it."""
+    from repro_torch.core import ordering
+    from repro_torch.core.graph import Graph
+    from repro_torch.core.metrics import replication_factor_ordered
+
+    _, first = np.unique(edges[:, 0] * np.int64(num_vertices) + edges[:, 1], return_index=True)
+    dedup = Graph.from_edges(edges[np.sort(first)], num_vertices)
+    o = ordering.geo_order(dedup, seed=0)
+    return int(dedup.num_edges), {k: replication_factor_ordered(dedup.src[o], dedup.dst[o], k, num_vertices)
+                                  for k in ks}
+
+
+def pooled_mirror_order(edges: np.ndarray, num_vertices: int, cfg, sample: np.ndarray, pool):
+    """``hier_order_edges(edges, num_vertices, cfg, sample)`` with each
+    chunk's ``order_edge_block`` submitted to ``pool`` (a
+    ``concurrent.futures`` executor) and the results joined in chunk order:
+    the same rank, splits, chunk seeds and seam repair, so the result is
+    byte-equal to the serial call. ``cfg``'s chunk mode must not be
+    "device": the workers own no card. Returns ``(ordered, info)``."""
+    if cfg.chunk_mode == "device":
+        raise ValueError("the pooled oracle orders chunks on the host: chunk mode 'device' is not one")
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    rank = HO.locality_rank(sample, num_vertices, cfg.seed, mode=cfg.rank_mode)
+    splits = HO.chunk_splits(HO.chunk_load(rank, edges), cfg)
+    cid = HO.chunk_of_edges(splits, rank, edges)
+    num_chunks = splits.shape[0] - 1
+    blocks = [edges[cid == c] for c in range(num_chunks)]
+    sizes = [int(b.shape[0]) for b in blocks]
+    # The greedy's steps grow with a chunk's vertices: the widest chunks go
+    # first, so the longest mirror does not start last.
+    widest_first = sorted((c for c in range(num_chunks) if sizes[c]), key=lambda c: -np.unique(blocks[c]).size)
+    perms = {c: pool.submit(order_chunk, blocks[c], cfg, cfg.seed + c) for c in widest_first}
+    parts = [blocks[c][perms[c].result()] for c in sorted(perms)]
+    ordered = np.concatenate(parts, axis=0) if parts else np.empty((0, 2), dtype=np.int64)
+    ordered = HO.repair_seams(ordered, sizes, cfg)
+    return ordered, {"splits": splits, "chunk_sizes": sizes, "num_chunks": num_chunks}
 
 
 def worker(out_dir: pathlib.Path) -> None:
