@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # RMAT scale 20, edge factor 16
     python3 chip_smoke.py --scale 14      # a quicker rehearsal of the graph path
-    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c), paths 6 (c), 7 (c), 8 (c) only
+    python3 chip_smoke.py --cards 4       # on four cards: slice 1, path 5 (a), (c), paths 6-9 (c) only
 
 Phases, in order; any failure raises and the script exits nonzero:
 
@@ -67,14 +67,26 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``IncrementalOrderer`` of 16 regions, a ``StreamingEngine`` on the card
    with device span repair, 3 batches of 1,024 ``SyntheticStream`` updates
    with a monitor after each (span repairs forced by ``partial_drift`` 1.0,
-   the full rung held off), a rescale 16→20 after batch 2 through the
-   compact gather (cut from 9 batches and two rescales: path 6 (a) scales in
-   at full width), the pack checked byte-equal to the
-   host ``pack_slots`` oracle after the first batch, each span repair, each
-   rescale and the last batch, and PageRank on the live pack held against
-   PageRank on the oracle pack; per batch the host apply and device scatter
-   times, per repair the device program and host mirror times, per rescale
-   its parts and bytes. No kernel of the port launches there;
+   the full rung held off; cut from 9 batches and two rescales: path 6 (a)
+   scales in at full width, and path 9 (a) scales this engine out), the
+   pack checked byte-equal to the host ``pack_slots`` oracle after the first
+   batch, each span repair and the last batch, and PageRank on the live pack
+   held against PageRank on the oracle pack; per batch the host apply and
+   device scatter times, per repair the device program and host mirror
+   times. No kernel of the port launches there. Then, on the same engine
+   and with the counts set to 0 again, path 9 (a), serving at full width:
+   the serve-only loop of ``launch/serve.py`` (``ServeLoop`` over an
+   ``ElasticController`` of 16 hosts with an autoscaler, an open-loop
+   workload whose burst on tick 8 passes 3 queued queries a host, a
+   measured probe every tick, 16 ticks and the drain) until the autoscaler
+   executes the rescale 16→20 through the compact gather, printed as path
+   3's rescale line was (its parts and bytes); gates: exactly one scale
+   event, the pack bit-identical after it, PageRank / SSSP / WCC on the live
+   pack right after it equal to the answers on the pack the decision was
+   taken on and to those on the ``pack_slots`` oracle (PageRank within
+   rtol 1e-4, SSSP and WCC exactly with the same iteration counts); the
+   probe times by kind and the modeled latencies are readings. No kernel
+   launches there either;
 8. path 4, the rungs with their selection on the card, at RMAT scale 14
    (8 regions, objective k in [4, 32]), with every launch count set to 0
    just before it: an engine in ``differential`` span and full mode and one
@@ -84,9 +96,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    the greedy kernel (``full_reorder``) in both engines, each launch tapped
    and held against the host mirror (permutation and step count). Then,
    with the counts set to 0 again, the rungs' device programs alone against
-   their host mirrors: the span order and selection on path 3's last span;
-   the greedy kernel on path 4's slots (beside its plain version's step loop
-   on the card) and on an RMAT-16 graph's slots;
+   their host mirrors: the span order and selection on the worst span of
+   path 3's engine after path 9 (a)'s rescale; the greedy kernel on path 4's
+   slots (beside its plain version's step loop on the card) and on an
+   RMAT-16 graph's slots;
 9. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
    once under ``build/multirank/`` for the ranks to load): (a) g = 4 ranks as
    2 processes × 2 over gloo, every rank on the one card (NCCL refuses two
@@ -166,7 +179,21 @@ Phases, in order; any failure raises and the script exits nonzero:
    the restore point, the final slots and the reassembled final pack
    byte-equal to the no-failure host oracle, the two ranks' event logs
    equal. ``--cards 4`` runs (c): (b) over NCCL, a card a rank;
-13. each kernel's time (CUDA events) beside its bound, the plain version's
+13. path 9 (b), the reference's serving scenario (``benchmarks/bench_serve.py``
+   at its defaults, as ``tests/torch_serve_harness.py`` builds it), with
+   every launch count set to 0 just before it: RMAT scale 9, 4 regions, two
+   days of 96 ticks with an ingest of 32 updates every tick, span
+   ``differential`` and full ``device`` on the card, the autoscaler free in
+   both directions, a probe every 8 ticks; gates: the trajectory (decisions,
+   moved edges, served, shed, SLO misses, modeled p50 / p99, every record)
+   equal to the committed ``tests/torch_serve_trajectory.json``, at least
+   two scale-outs and two scale-ins with no flap pair, the pack
+   bit-identical after every event, every ``segment_rf`` launch (two a span
+   selection) exact and every greedy launch equal to the host mirror, each
+   kernel launched. ``--cards 4`` runs (c): (b) on one rank, then over 4
+   NCCL ranks, a card each, every rank's trajectory equal to the committed
+   one and each probe's answer to the one-rank run's;
+14. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes; ``segment_rf`` on the card alone
    (calls captured in a CUDA graph) and as a caller pays it (back-to-back
@@ -183,7 +210,8 @@ Phases, in order; any failure raises and the script exits nonzero:
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
 ``{"streamrank": ...}`` line of path 6's, an ``{"outofcore": ...}`` line of
-path 7's, a ``{"control": ...}`` line of path 8's, then the card line, one
+path 7's, a ``{"control": ...}`` line of path 8's, a ``{"serve": ...}`` line
+of path 9's, then the card line, one
 ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
@@ -229,13 +257,24 @@ DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
 FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
 # Path 3, the stream at full width: the slice-1 graph over 16 regions (span
 # repairs forced by partial_drift 1.0, the full rung held off by full_drift 99),
-# batches of 1,024 updates, a rescale 16→20 after batch 2. 3 batches and one
-# rescale, cut from 9 batches and rescales 16→20, 20→12 to make room for path
-# 6, whose (a) scales in at full width over four ranks: a batch costs 13–22 s
-# of host time at RMAT-20 (apply, span mirror, two oracle checks), a rescale
-# about 88 s of host re-layout. 4 batches took the smoke past 900 s.
+# 3 batches of 1,024 updates, cut from 9 batches and rescales 16→20, 20→12 to
+# make room for path 6, whose (a) scales in at full width over four ranks: a
+# batch costs 13–22 s of host time at RMAT-20 (apply, span mirror, two oracle
+# checks), a rescale about 50 s of host re-layout. 4 batches took the smoke
+# past 900 s. Its rescale 16→20 runs in path 9 (a), on the same engine, where
+# the autoscaler executes it.
 STREAM_REGIONS, STREAM_BATCH, STREAM_BATCHES = 16, 1024, 3
-STREAM_RESCALES = {2: 20}
+# Path 9 (a), serving at full width on path 3's engine (the serve-only loop of
+# launch/serve.py: no ingest, which path 3 covers at this width): 16 hosts
+# retire 32 queries a tick; the workload sends 18-30 a tick (base 24, jitter
+# 0.25, no diurnal swing) and 6x that on tick 8, so the backlog's EMA passes
+# 3 a host x 16 there and the autoscaler scales 16 -> 20 once (the out-cooldown
+# holds the burst of tick 16, k_max 20 would; no ingest, so no wall sample, so
+# no scale-in). A probe every tick.
+SERVE_TICKS, SERVE_K_MAX = 16, 20
+SERVE_WORKLOAD = dict(base_rate=24.0, day_ticks=SERVE_TICKS, diurnal_amp=0.0, burst_every=8, burst_factor=6.0, seed=0)
+SERVE_POLICY = dict(k_min=STREAM_REGIONS, k_max=SERVE_K_MAX, step_out=SERVE_K_MAX - STREAM_REGIONS,
+                    queue_high_per_host=3.0, queue_low=0.5, ema=0.6, out_cooldown_s=1e6, in_cooldown_s=1e6)
 # Path 4, both rungs with selection on the card, at a reduced size: RMAT scale
 # 14. The objective range is k in [4, 32]: at [4, 128] the greedy's int32
 # priority bound is 2.78e9 on this graph and the engine would apply the host
@@ -489,11 +528,12 @@ def span_sums(tracer) -> dict:
     return out
 
 
-def stream_path(g, src, dst, dev, phases: dict) -> dict:
+def stream_path(g, src, dst, dev, phases: dict):
     """Path 3: the streaming engine on the slice-1 graph and GEO order at full
-    width. Every ingest, span repair and rescale runs on ``dev``; the pack is
-    checked against the host ``pack_slots`` oracle after the first batch,
-    each span repair, each rescale and the last batch. Returns readings."""
+    width. Every ingest and span repair runs on ``dev``; the pack is checked
+    against the host ``pack_slots`` oracle after the first batch, each span
+    repair and the last batch. Returns readings and the engine, which path 9
+    (a) serves from."""
     from repro_torch.graphs import engine as E
     from repro_torch.obs.trace import Tracer
     from repro_torch.stream import IncrementalOrderer, StreamConfig, StreamingEngine, SyntheticStream
@@ -508,10 +548,11 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
     eng = StreamingEngine(orderer, device=dev, span_repair="device", tracer=tracer)
     phases["stream_upload_s"] = time.perf_counter() - t0
     edges_b, mask_b = (t.numel() * t.element_size() for t in (eng.data.edges, eng.data.mask))
-    log(f"stream: {STREAM_BATCHES} batches of {STREAM_BATCH} updates and one rescale, 16->20 after batch 2 (cut "
-        f"from 9 batches and rescales 16->20, 20->12 for the run's time: a batch's host apply, span mirror and "
-        f"oracle checks take 13-22 s at RMAT-20, a rescale's host re-layout about 88 s; path 6 (a) scales in at "
-        f"full width over four ranks, and 4 batches took the smoke past 900 s; the graph is not cut)")
+    log(f"stream: {STREAM_BATCHES} batches of {STREAM_BATCH} updates (cut from 9 batches and rescales 16->20, "
+        f"20->12 for the run's time: a batch's host apply, span mirror and oracle checks take 13-22 s at RMAT-20, "
+        f"a rescale's host re-layout about 50 s; path 6 (a) scales in at full width over four ranks, path 9 (a) "
+        f"scales this engine out 16->20 under query load, and 4 batches took the smoke past 900 s; the graph is "
+        f"not cut)")
     log(f"stream: {orderer.num_edges} edges in {orderer.capacity} slots over {orderer.regions} regions, "
         f"edges {edges_b} B and mask {mask_b} B on {dev}; orderer {phases['stream_orderer_s']:.3f} s, "
         f"pack_slots + upload {phases['stream_upload_s']:.3f} s")
@@ -526,7 +567,7 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
         checks.append(what)
         log(f"stream: bit-identical to pack_slots after {what} ({time.perf_counter() - t:.3f} s to check)")
 
-    rows, repairs, rescales = [], [], []
+    rows, repairs = [], []
     for b in range(1, STREAM_BATCHES + 1):
         tracer.clear()
         st = eng.ingest(stream.batch())
@@ -548,27 +589,9 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
             verify("the first batch")
         if "span_device_ms" in row:
             verify(f"span repair at batch {b}")
-        if b in STREAM_RESCALES:
-            tracer.clear()
-            rs = eng.rescale(STREAM_RESCALES[b])
-            sp = span_sums(tracer)
-            slots_new = eng.data.edges.shape[0] * eng.data.edges.shape[1]
-            # The compact moves, on the card: the gather map up (two int32
-            # indices and an f32 mask a slot), the old edges read at the
-            # gathered slots, the new edges and mask written.
-            compact_bytes = slots_new * (4 + 4 + 4) + slots_new * 8 * 2 + slots_new * 4
-            rescales.append(dict(k_old=rs.k_old, k_new=rs.k_new, ms=rs.elapsed_s * 1e3,
-                                 relayout_ms=sp["rescale.relayout"] * 1e3, compact_ms=sp["rescale.compact"] * 1e3,
-                                 moved_edges=rs.moved_edges, moved_bytes=rs.moved_edges * 8,
-                                 cep_plan_edges=rs.cep_plan_edges, compact_bytes=compact_bytes))
-            r = rescales[-1]
-            log(f"stream rescale {rs.k_old}->{rs.k_new}: {r['ms']:.3f} ms (host relayout {r['relayout_ms']:.3f} ms, "
-                f"gather-map upload + compact on the card {r['compact_ms']:.3f} ms); moved {rs.moved_edges} edges "
-                f"({r['moved_bytes']} B; the CEP plan would move {rs.cep_plan_edges}), compact moves {compact_bytes} B")
-            verify(f"rescale {rs.k_old}->{rs.k_new}")
     verify("the last batch")
     check(len(repairs) >= 3, f"stream: {len(repairs)} span repairs ran on the card, expected at least 3")
-    check(eng.k == STREAM_RESCALES[max(STREAM_RESCALES)], "stream: the last rescale did not land")
+    check(eng.k == STREAM_REGIONS, f"stream: the engine holds {eng.k} regions, expected {STREAM_REGIONS}")
     pr_live = E.pagerank(eng.data, iterations=20)
     pr_oracle = E.pagerank(eng.oracle_pack(), iterations=20)
     check(bool(torch.isfinite(pr_live).all()), "stream: PageRank on the live pack is not finite")
@@ -576,9 +599,8 @@ def stream_path(g, src, dst, dev, phases: dict) -> dict:
     check(pr_rel <= PAGERANK_RTOL, f"stream: PageRank on the live pack differs from the oracle pack's by rel {pr_rel}")
     log(f"stream: PageRank on the live pack vs the uploaded pack_slots oracle: max rel diff {pr_rel:.3e} "
         f"(limit {PAGERANK_RTOL}); {len(checks)} bit-identity checks passed")
-    r0, r1 = orderer.span_bounds()
-    return dict(batches=rows, span_repairs=repairs, rescales=rescales, checks=checks, pagerank_rel=pr_rel,
-                edges=orderer.num_edges, slots=orderer.capacity, span=(*orderer.span_arrays(r0, r1), v))
+    return dict(batches=rows, span_repairs=repairs, checks=checks, pagerank_rel=pr_rel, edges=orderer.num_edges,
+                slots=orderer.capacity), eng
 
 
 def rungs_graph():
@@ -735,8 +757,9 @@ def rows_timing(rows, segment_rf) -> dict:
 
 def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
     """The rungs' device programs alone, each held exactly against its host
-    mirror on the same slots: the span order and the span selection on path
-    3's last worst span (full width); the greedy kernel on path 4's final
+    mirror on the same slots: the span order and the span selection on the
+    worst span of path 3's engine at 20 regions, after path 9 (a)'s rescale
+    (full width); the greedy kernel on path 4's final
     slots, beside its plain version's step loop on the card, and on an
     RMAT-16 graph's slots (``greedy_times``). Times: the card's (CUDA events)
     and the host's enqueue; the mirror's on the host clock."""
@@ -1850,13 +1873,287 @@ def control_drill(tag: str, backend: str, live_devices: list, recover_devices: l
     return read
 
 
+def serve_answers(data, group, qe, source: int) -> dict:
+    """Each query kind once on ``data``'s operands, with ``qe``'s iteration
+    settings and SSSP from ``source``: ``{kind: (answer, iterations)}`` (-1
+    for PageRank)."""
+    from repro_torch.graphs import engine as E
+
+    out = {}
+    for kind in E.QUERY_KINDS:
+        prog = E.query_program(kind, num_vertices=data.num_vertices, group=group, iterations=qe.pagerank_iters,
+                               max_iters=qe.query_max_iters)
+        if kind == "pagerank":
+            out[kind] = (prog(data.edges, data.mask, data.degrees), -1)
+        else:
+            out[kind] = prog(data.edges, data.mask, *((source,) if kind == "sssp" else ()))
+    return out
+
+
+def same_answers(got: dict, want: dict, what: str) -> dict:
+    """PageRank within ``PAGERANK_RTOL``, SSSP and WCC exact with the same
+    iteration count; returns PageRank's max relative difference and the
+    iteration counts."""
+    pr_rel = rel_close(got["pagerank"][0], want["pagerank"][0], PAGERANK_RTOL, f"{what}: PageRank")
+    for kind in ("sssp", "wcc"):
+        (a, it), (b, it_want) = got[kind], want[kind]
+        check(it == it_want and torch.equal(a, b), f"{what}: {kind} differs ({it} against {it_want} iterations)")
+    return dict(pagerank_rel=pr_rel, sssp_iters=got["sssp"][1], wcc_iters=got["wcc"][1])
+
+
+def probe_times(records) -> dict:
+    """Measured probe seconds by query kind: count, median and maximum (ms)."""
+    by_kind: dict = {}
+    for r in records:
+        if r.measured_s > 0:
+            by_kind.setdefault(r.kind, []).append(r.measured_s * 1e3)
+    return {kind: dict(count=len(ms), median_ms=float(np.median(ms)), max_ms=max(ms)) for kind, ms in by_kind.items()}
+
+
+def serve_full_width(eng, phases: dict):
+    """Path 9 (a): the serve-only loop of ``launch/serve.py`` over path 3's
+    engine at full width. An ``ElasticController`` of 16 hosts with the
+    autoscaler of ``SERVE_POLICY`` and the ``SERVE_WORKLOAD`` traffic, a
+    probe every tick; the burst of tick 8 scales it 16 -> 20, the engine's
+    rescale (host re-layout, compact on the card). Gates: exactly one
+    executed scale event, 16 -> 20; the pack bit-identical after it (the
+    loop's own check); each query kind on the live pack at the decision
+    (before the rescale) and right after it equal within ``PAGERANK_RTOL`` /
+    exactly, and after it equal to the same query on ``oracle_pack()``.
+    Returns readings and the worst span's host slots for the twin phase."""
+    from repro_torch.elastic.autoscale import AutoscaleConfig, AutoscalePolicy
+    from repro_torch.elastic.controller import ElasticController
+    from repro_torch.launch import serve as LS
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.stream.workload import OpenLoopWorkload
+
+    reg = MetricsRegistry()
+    loop_ref: list = []
+    ctl = ElasticController(STREAM_REGIONS, clock=lambda: loop_ref[0].now if loop_ref else 0.0, metrics_registry=reg)
+    ctl.attach_stream(eng)
+    policy = AutoscalePolicy(AutoscaleConfig(**SERVE_POLICY))
+    ctl.attach_autoscaler(policy)
+    loop = LS.ServeLoop(ctl, OpenLoopWorkload(num_vertices=eng.num_vertices, **SERVE_WORKLOAD),
+                        config=LS.ServeConfig(probe_every=1), registry=reg)
+    loop_ref.append(loop)
+    qe = loop.queries
+    source = int(torch.argmax(eng.data.degrees))  # SSSP from the hub: the graph does not change here
+    answers: dict = {}
+    decide = policy.decide
+
+    def decide_then_answer(**kw):
+        decision = decide(**kw)
+        if decision is not None and "before" not in answers:  # the pack the decision was taken on
+            answers["before"], phases["serve_a_before_s"] = synced_s(lambda: serve_answers(eng.data, eng.data.group,
+                                                                                           qe, source))
+        return decision
+
+    policy.decide = decide_then_answer
+    _, phases["serve_a_warm_s"] = synced_s(qe.warm)
+    eng.tracer.clear()
+    t0 = time.perf_counter()
+    decision_tick = None
+    for _ in range(SERVE_TICKS):
+        loop.tick()
+        if loop.scale_events and decision_tick is None:
+            decision_tick = loop.tick_index - 1
+            answers["after"], phases["serve_a_after_s"] = synced_s(lambda: serve_answers(eng.data, eng.data.group,
+                                                                                         qe, source))
+    loop.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scale_events = [e for e in ctl.events if e.kind in ("scale_in", "scale_out")]
+    check(len(scale_events) == 1 and loop.scale_events == scale_events,
+          f"path 9 (a): {len(scale_events)} scale events {[(e.k_old, e.k_new) for e in scale_events]}, expected one")
+    ev = scale_events[0]
+    check((ev.kind, ev.k_old, ev.k_new, ev.executed) == ("scale_out", STREAM_REGIONS, SERVE_K_MAX, True)
+          and eng.k == SERVE_K_MAX, f"path 9 (a): the autoscaler gave {ev}, expected an executed 16 -> 20")
+    rs = ctl.rescale_stats[-1]
+    sp = span_sums(eng.tracer)
+    slots_new = eng.data.edges.shape[0] * eng.data.edges.shape[1]
+    # The compact moves, on the card: the gather map up (two int32 indices and
+    # an f32 mask a slot), the old edges read at the gathered slots, the new
+    # edges and mask written.
+    compact_bytes = slots_new * (4 + 4 + 4) + slots_new * 8 * 2 + slots_new * 4
+    rescale = dict(k_old=rs.k_old, k_new=rs.k_new, ms=rs.elapsed_s * 1e3, relayout_ms=sp["rescale.relayout"] * 1e3,
+                   compact_ms=sp["rescale.compact"] * 1e3, moved_edges=rs.moved_edges, moved_bytes=rs.moved_edges * 8,
+                   cep_plan_edges=rs.cep_plan_edges, compact_bytes=compact_bytes)
+    log(f"stream rescale {rs.k_old}->{rs.k_new}: {rescale['ms']:.3f} ms (host relayout {rescale['relayout_ms']:.3f} "
+        f"ms, gather-map upload + compact on the card {rescale['compact_ms']:.3f} ms); moved {rs.moved_edges} edges "
+        f"({rescale['moved_bytes']} B; the CEP plan would move {rs.cep_plan_edges}), compact moves {compact_bytes} B "
+        f"(path 9 (a): executed by the autoscaler)")
+    oracle = eng.oracle_pack()
+    answers["oracle"], phases["serve_a_oracle_s"] = synced_s(lambda: serve_answers(oracle, None, qe, source))
+    del oracle
+    across = same_answers(answers["after"], answers["before"], "path 9 (a): the query after the rescale against "
+                                                                "the one at the decision")
+    to_oracle = same_answers(answers["after"], answers["oracle"], "path 9 (a): the query after the rescale against "
+                                                                  "the oracle pack")
+    s = loop.summary()
+    probes = probe_times(loop.records)
+    read = dict(ticks=s["ticks"], served=s["served"], shed=s["shed"], latency_p50_s=s["latency_p50_s"],
+                latency_p99_s=s["latency_p99_s"], slo_violations=s["slo_violations"], k_path=s["k_path"],
+                reason=ev.reason, decision_tick=decision_tick, rescale=rescale, wall_s=wall, probes=probes,
+                across_rescale=across, to_oracle=to_oracle, sssp_source=source, evaluations=len(policy.log),
+                held=sorted({sig.held_by for sig in policy.log if sig.held_by}))
+    log(f"path 9 (a): {s['served']} queries served over {s['ticks']} ticks in {wall:.3f} s, shed {s['shed']}, "
+        f"modeled latency p50 {s['latency_p50_s']:.2f} s p99 {s['latency_p99_s']:.2f} s, k {s['k_path']} at tick "
+        f"{decision_tick} ({ev.reason}); bit-identical after the rescale; PageRank / SSSP / WCC after it equal to the answers at "
+        f"the decision (PageRank max rel {across['pagerank_rel']:.3e}) and to the oracle pack's (max rel "
+        f"{to_oracle['pagerank_rel']:.3e}), SSSP from vertex {source} {across['sssp_iters']} and WCC "
+        f"{across['wcc_iters']} iterations; "
+        + "; ".join(f"{kind} probe median {p['median_ms']:.3f} ms, max {p['max_ms']:.3f} ms ({p['count']})"
+                    for kind, p in sorted(probes.items())))
+    o = eng.orderer
+    r0, r1 = o.span_bounds()
+    return read, (*o.span_arrays(r0, r1), eng.num_vertices)
+
+
+def serve_scenario(dev, phases: dict, segment_rf) -> dict:
+    """Path 9 (b): the reference's serving scenario (``tests/torch_serve_harness.py``,
+    after ``benchmarks/bench_serve.py`` at its defaults) on ``dev``, an
+    ingest every tick, both rungs on the card. Gates: the trajectory equal to
+    the committed ``tests/torch_serve_trajectory.json`` (the JAX package's
+    loop over a port CPU engine), at least 2 scale-outs and 2 scale-ins and no
+    flap pair, the pack bit-identical after every event (the loop's own
+    checks), every ``segment_rf`` launch (two a span selection) exact against
+    its plain version and every greedy launch equal to the host mirror, each
+    kernel launched. Returns readings, with the probe answers."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_serve_harness as SH
+
+    from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import span_reorder as SRK
+
+    kernel, tapped = SRK.segment_distinct_counts, []
+
+    def tap(rows):
+        counts = kernel(rows)
+        tapped.append((rows.clone(), counts.clone()))
+        return counts
+
+    SRK.segment_distinct_counts = tap
+    greedy_tapped: list = []
+    greedy_kernel, FRK.greedy_keys = greedy_tap(FRK, greedy_tapped)
+    sc = SH.SCENARIO
+    t0 = time.perf_counter()
+    loop, ctl, policy, eng = SH.build_loop(SH.build_ordered(**sc), device=dev, **sc)
+    probes = SH.record_probes(loop)
+    loop.queries.warm()
+    del probes[:]  # the warm-up's answers are not probes of the run
+    phases["serve_b_setup_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SH.run_scenario(loop, **sc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    SRK.segment_distinct_counts = kernel
+    FRK.greedy_keys = greedy_kernel
+    traj = SH.trajectory(loop, policy)
+    want = json.loads(SH.TRAJECTORY_FILE.read_text())
+    diff = sorted(key for key in want if traj.get(key) != want[key])
+    check(not diff, f"path 9 (b): the trajectory differs from tests/torch_serve_trajectory.json in {diff}")
+    check(traj["scale_outs"] >= 2 and traj["scale_ins"] >= 2 and traj["flap_pairs"] == 0,
+          f"path 9 (b): {traj['scale_outs']} scale-outs, {traj['scale_ins']} scale-ins, {traj['flap_pairs']} flaps")
+    ingests = [e for e in ctl.events if e.kind == "ingest"]
+    selections = sum(e.escalation == "partial" and e.repair == "differential" for e in ingests)
+    check(segment_rf.launches == len(tapped) == 2 * selections > 0,
+          f"path 9 (b): segment_rf launched {segment_rf.launches} times ({len(tapped)} tapped) for {selections} span "
+          f"selections, expected 2 each")
+    check(FRK.launches == len(greedy_tapped) > 0, f"path 9 (b): the greedy kernel launched {FRK.launches} times")
+    max_err = 0
+    for i, (rows, counts) in enumerate(tapped):
+        want_counts = segment_rf.segment_distinct_counts_torch(rows)
+        max_err = max(max_err, int((counts - want_counts).abs().max()))
+        check(torch.equal(counts, want_counts), f"path 9 (b): segment_rf launch {i} differs from the plain version")
+    greedy = [greedy_against_mirror(FRK, rec) for rec in greedy_tapped]
+    check(all(x["exact"] for x in greedy), f"path 9 (b): a greedy launch differs from the host mirror: {greedy}")
+    s = loop.summary()
+    times = probe_times(loop.records)
+    read = dict(ticks=s["ticks"], served=s["served"], shed=s["shed"], slo_violations=s["slo_violations"],
+                latency_p50_s=s["latency_p50_s"], latency_p99_s=s["latency_p99_s"], k_path=s["k_path"],
+                scale_outs=s["scale_outs"], scale_ins=s["scale_ins"], flap_pairs=traj["flap_pairs"],
+                moved_edges=s["moved_edges_per_decision"], wall_s=wall, checks=len(ingests) + len(loop.scale_events),
+                rung_counts=dict(eng.rung_counts), selections=selections,
+                launches=dict(segment_rf=len(tapped), full_reorder=len(greedy_tapped)),
+                greedy_steps=[x["steps"] for x in greedy], probes=times,
+                rescale_ms=[st.elapsed_s * 1e3 for st in ctl.rescale_stats])
+    log(f"path 9 (b): {s['ticks']} ticks ({sc['days']} days of {sc['day_ticks']}, {sc['ingest_batch']} updates a "
+        f"tick) in {wall:.3f} s, {s['served']} served, {s['shed']} shed, {s['slo_violations']} over the SLO, modeled "
+        f"p50 {s['latency_p50_s']:.2f} s p99 {s['latency_p99_s']:.2f} s, k {s['k_path']} ({s['scale_outs']} out, "
+        f"{s['scale_ins']} in, no flap), equal to the committed trajectory; {read['checks']} bit-identity checks; "
+        f"rungs {read['rung_counts']}; segment_rf {len(tapped)} launches, each exact; greedy {len(greedy_tapped)}, "
+        f"each equal to the host mirror; rescales {min(read['rescale_ms']):.3f}-{max(read['rescale_ms']):.3f} ms; "
+        + "; ".join(f"{kind} probe median {p['median_ms']:.3f} ms, max {p['max_ms']:.3f} ms ({p['count']})"
+                    for kind, p in sorted(times.items())))
+    read["segment_rf_max_abs_err"] = max_err
+    read["answers"] = probes
+    return read
+
+
+def serve_ranks(tag: str, backend: str, devices: list, one_rank: dict) -> dict:
+    """Path 9 (c): path 9 (b) over g ranks of ``tests/torch_serve_harness.py``
+    (one process a rank, a card each over NCCL). Gates: every rank's
+    trajectory equal to the committed one, the ranks' event logs equal, and
+    each probe's answer equal to the one-rank run's ``one_rank`` (PageRank
+    within ``PAGERANK_RTOL``, SSSP and WCC exact with the same iterations);
+    each rank launched ``segment_rf`` and the greedy kernel."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_serve_harness as SH
+
+    run_dir = ROOT / "build" / "serve" / tag
+    shutil.rmtree(run_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = SH.run_cluster(run_dir, backend=backend, n_procs=len(devices), devs_per_proc=1, devices=devices,
+                           scenario=SH.SCENARIO, timeout=STREAMRANK_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    want = json.loads(SH.TRAJECTORY_FILE.read_text())
+    for r in ranks:
+        check(r["trajectory"] == want,
+              f"path 9 ({tag}) rank {r['rank']}: the trajectory differs from the committed one")
+        check(r["launches"]["segment_rf"] > 0 and r["launches"]["full_reorder"] > 0,
+              f"path 9 ({tag}) rank {r['rank']}: launches {r['launches']}")
+        check(len(r["probes"]) == len(one_rank["answers"]), f"path 9 ({tag}) rank {r['rank']}: probe count")
+        for (tick, kind, source, iters), answer, (t1, k1, s1, a1, i1) in zip(r["probes"], r["answers"],
+                                                                             one_rank["answers"]):
+            check((tick, kind, source, iters) == (t1, k1, s1, i1), f"path 9 ({tag}) rank {r['rank']}: probe at tick "
+                                                                   f"{tick} differs from the one-rank run's")
+            if kind == "pagerank":
+                rel_close(torch.from_numpy(answer), torch.from_numpy(a1), PAGERANK_RTOL,
+                          f"path 9 ({tag}) rank {r['rank']}: PageRank probe at tick {tick}")
+            else:
+                check(np.array_equal(answer, a1), f"path 9 ({tag}) rank {r['rank']}: {kind} probe at tick {tick}")
+    check(len({r["events_jsonl"] for r in ranks}) == 1, f"path 9 ({tag}): the ranks' event logs differ")
+    read = dict(ranks=len(ranks), backend=backend, devices=devices, wall_s=wall,
+                wall_s_by_rank=[r["wall_s"] for r in ranks], launches_by_rank=[r["launches"] for r in ranks],
+                k_path=ranks[0]["trajectory"]["k_path"],
+                probe_ms_median_by_rank=[float(np.median(r["probe_s"])) * 1e3 for r in ranks])
+    log(f"path 9 ({tag}): {len(ranks)} ranks over {backend}, each {[round(x, 3) for x in read['wall_s_by_rank']]} s, "
+        f"k path {read['k_path']} on every rank, equal to the committed trajectory; {len(one_rank['answers'])} probes "
+        f"a rank, each equal to the one-rank run's; launches {read['launches_by_rank']}; {wall:.3f} s in all")
+    return read
+
+
+def serve_over_cards(cards: list, phases: dict, segment_rf) -> dict:
+    """Path 9 (c): path 9 (b) on one rank on ``cards[0]`` in this process,
+    then over one NCCL rank a card of ``cards``, held to it."""
+    t0 = time.perf_counter()
+    one = serve_scenario(torch.device(cards[0]), phases, segment_rf)
+    phases["serve_b_s"] = time.perf_counter() - t0
+    one.pop("segment_rf_max_abs_err")
+    t0 = time.perf_counter()
+    read = {"b": one, "c": serve_ranks("c_g4_nccl_4cards", "nccl", cards, one)}
+    phases["serve_c_s"] = time.perf_counter() - t0
+    del one["answers"]
+    return read
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
     ap.add_argument("--edge-factor", type=int, default=16, help="RMAT edges sampled per vertex")
     ap.add_argument("--cards", type=int, default=1,
-                    help="4: only slice 1, path 5 (a) and (c), and paths 6 (c), 7 (c) and 8 (c), (c) being g = 4 "
-                         "ranks over NCCL, one card each")
+                    help="4: only slice 1, path 5 (a) and (c), and paths 6 (c), 7 (c), 8 (c) and 9 (c), (c) being "
+                         "g = 4 ranks over NCCL, one card each")
     ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
     ap.add_argument("--stream-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 6
     ap.add_argument("--oc-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 7
@@ -1940,7 +2237,7 @@ def main() -> int:
     log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), paths 6 (c), 7 (c) and 8 (c) only
+    if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), paths 6 (c), 7 (c), 8 (c), 9 (c) only
         # ------------------------------------------------ kernel parity: segment_rf
         rng = np.random.default_rng(0)
         cases = [(k, 2 * int(np.diff(cep.chunk_bounds(n, k)).max())) for k in ROW_KS]
@@ -2218,6 +2515,10 @@ def main() -> int:
         # Path 8 (c): the SIGKILL drill over NCCL, one card a rank.
         control_read = {"c": run_control_drill("c_g4_nccl_4cards", "nccl", cards, cards[:2], g14)}
         log(json.dumps({"control": control_read}))
+        # Path 9 (c): the serving scenario over NCCL, one card a rank, against
+        # the same scenario on one rank in this process.
+        reset_launches()
+        log(json.dumps({"serve": serve_over_cards(cards, phases, segment_rf)}))
         log(json.dumps({"multirank": multirank_read, "streamrank": streamrank_read, "phases": phases}))
         log(f"card: {card}")
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2355,12 +2656,26 @@ def main() -> int:
     # work is torch ops (scatter, gather, label propagation, sorts).
     reset_launches()
     t0 = time.perf_counter()
-    stream_read = stream_path(g, src, dst, dev, phases)
+    stream_read, stream_eng = stream_path(g, src, dst, dev, phases)
     torch.cuda.synchronize()
     phases["stream_path_s"] = time.perf_counter() - t0
     stream_launches = read_launches()
     check(stream_launches == dict.fromkeys(KERNELS, 0), f"stream path launched {stream_launches}, expected none")
     log(f"stream path: {phases['stream_path_s']:.3f} s, launches {stream_launches}")
+
+    # --------------------------- path 9 (a): serving at full width on path 3's engine
+    # Run here, where path 3 hands its engine over (no second orderer build or
+    # upload); the rescale 16->20 is the autoscaler's. No kernel of the port
+    # launches: the queries and the compact are torch ops.
+    reset_launches()
+    t0 = time.perf_counter()
+    serve_a, stream_read["span"] = serve_full_width(stream_eng, phases)
+    torch.cuda.synchronize()
+    phases["serve_a_s"] = time.perf_counter() - t0
+    serve_a_launches = read_launches()
+    check(serve_a_launches == dict.fromkeys(KERNELS, 0), f"path 9 (a) launched {serve_a_launches}, expected none")
+    log(f"path 9 (a): {phases['serve_a_s']:.3f} s, launches {serve_a_launches}")
+    del stream_eng
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2437,6 +2752,23 @@ def main() -> int:
                                               control_read["a"].pop("segment_rf_max_abs_err"))
     control_read["b"] = run_control_drill("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, ["cuda:0"] * 2, g14)
     del g14
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------- path 9 (b): the reference's serving scenario
+    reset_launches()
+    t0 = time.perf_counter()
+    serve_b = serve_scenario(dev, phases, segment_rf)
+    torch.cuda.synchronize()
+    phases["serve_b_s"] = time.perf_counter() - t0
+    serve_b_launches = read_launches()
+    check(serve_b_launches == {**dict.fromkeys(KERNELS, 0), **serve_b["launches"]},
+          f"path 9 (b) launched {serve_b_launches}, expected segment_rf {serve_b['launches']['segment_rf']} times, the "
+          f"greedy kernel {serve_b['launches']['full_reorder']} times, and nothing else")
+    log(f"path 9 (b): {phases['serve_b_s']:.3f} s, launches {serve_b_launches}")
+    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                              serve_b.pop("segment_rf_max_abs_err"))
+    del serve_b["answers"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2605,6 +2937,7 @@ def main() -> int:
         report["segment_rf"][f"streamrank_{tag}_by_rank"] = read["segment_rf_launches"]
         report["full_reorder"][f"streamrank_{tag}_by_rank"] = read["greedy_launches"]
     by_path["control_a"] = control_launches  # path 8 (a), in this process; (b) launches nothing
+    by_path["serve_a"], by_path["serve_b"] = serve_a_launches, serve_b_launches  # path 9, in this process
     report["segment_rf"]["control_a_before_after_restore"] = control_read["a"]["launches"]["segment_rf"]
     report["full_reorder"]["control_a_before_after_restore"] = control_read["a"]["launches"]["full_reorder"]
     for tag, read in outofcore_read.items():  # path 7: the same
@@ -2620,6 +2953,7 @@ def main() -> int:
     log(json.dumps({"streamrank": streamrank_read}))
     log(json.dumps({"outofcore": outofcore_read}))
     log(json.dumps({"control": control_read}))
+    log(json.dumps({"serve": {"a": serve_a, "b": serve_b}}))
     kernels = []
     for name in KERNELS:
         r = report[name]

@@ -21,7 +21,9 @@ each rank scatters its own rows and an ``all_reduce`` (SUM for PageRank, MIN
 for SSSP and WCC) combines them, as the reference's ``psum``/``pmin``. Float
 sums are taken in another order than XLA's (CUDA scatter-add uses atomics),
 so PageRank agrees with the JAX package to a tolerance; SSSP and WCC take
-minima of integer-valued floats and agree exactly.
+minima of integer-valued floats and agree exactly. ``query_program`` serves
+the same three apps on the pack's operands (launch/serve.py), through the
+same bodies.
 """
 from __future__ import annotations
 
@@ -59,6 +61,8 @@ __all__ = [
     "sssp",
     "wcc",
     "comm_volume_per_iteration",
+    "QUERY_KINDS",
+    "query_program",
 ]
 
 
@@ -531,69 +535,126 @@ def pack_slots_sharded_stream(
 
 
 # ------------------------------------------------------------------ GAS apps
-def _endpoints(data):
-    e = data.edges.reshape(-1, 2).long()
-    return e[:, 0], e[:, 1], data.mask.reshape(-1)
-
-
-def _combine(data, y: torch.Tensor, op: str) -> torch.Tensor:
+def _combine(group: GraphGroup | None, y: torch.Tensor, op: str) -> torch.Tensor:
     """The GAS combine over the ``graph`` axis: each rank scattered its own
-    rows into ``y``; a sharded pack sums (``psum``) or takes the minimum
-    (``pmin``) over its ranks, so every rank holds the same vertex state."""
-    if isinstance(data, ShardedEngineData):
-        return MH.all_reduce(y, data.group, op)
-    return y
+    rows into ``y``; over a group the ranks' candidates are summed (``psum``)
+    or take their minimum (``pmin``), so every rank holds the same vertex
+    state. ``group=None`` is the replicated pack, combined already."""
+    return y if group is None else MH.all_reduce(y, group, op)
 
 
-def pagerank(data, *, iterations: int = 20, damping: float = 0.85) -> torch.Tensor:
-    """PageRank over an ``EngineData`` or a ``ShardedEngineData`` (every rank calls it)."""
-    v = data.num_vertices
-    src, dst, m = _endpoints(data)
-    deg = torch.clamp(data.degrees, min=1.0)
-    dangling = data.degrees == 0
-    x = torch.full((v,), 1.0 / v, dtype=torch.float32, device=data.edges.device)
+def _group_of(data) -> GraphGroup | None:
+    return data.group if isinstance(data, ShardedEngineData) else None
+
+
+def _pagerank_operands(edges, mask, degrees, v: int, group, iterations: int, damping: float) -> torch.Tensor:
+    """PageRank on the pack operands: this rank's rows of ``edges``/``mask``
+    and the replicated ``degrees`` (every rank of ``group`` calls it)."""
+    e = edges.reshape(-1, 2).long()
+    src, dst, m = e[:, 0], e[:, 1], mask.reshape(-1)
+    deg = torch.clamp(degrees, min=1.0)
+    dangling = degrees == 0
+    x = torch.full((v,), 1.0 / v, dtype=torch.float32, device=edges.device)
     for _ in range(iterations):
         contrib = x / deg
         # Undirected: each edge pushes both ways (vertex-cut GAS scatter).
         y = torch.zeros_like(x)
         y.index_add_(0, dst, contrib[src] * m)
         y.index_add_(0, src, contrib[dst] * m)
-        y = _combine(data, y, "sum")
+        y = _combine(group, y, "sum")
         # Dangling vertices spread their mass uniformly (networkx convention).
         dm = torch.where(dangling, x, 0.0).sum()
         x = (1 - damping) / v + damping * (y + dm / v)
     return x
 
 
-def _min_propagate(data, x0: torch.Tensor, step: float, max_iters: int):
+def _min_propagate(edges, mask, group, x0: torch.Tensor, step: float, max_iters: int):
     """Iterate x ← min(x, min over edges of x[neighbour] + step) until nothing
     changes or ``max_iters``; returns (x, iterations run). The combined
-    candidates are the same on every rank, so every rank stops together."""
+    candidates are the same on every rank, so every rank stops together.
+    Each iteration reads its stop flag on the host."""
     big = 1e9
-    src, dst, m = _endpoints(data)
-    valid = m > 0
+    e = edges.reshape(-1, 2).long()
+    src, dst = e[:, 0], e[:, 1]
+    valid = mask.reshape(-1) > 0
     x, it, changed = x0, 0, True
     while changed and it < max_iters:
         cand = torch.full_like(x, big)
         cand.scatter_reduce_(0, dst, torch.where(valid, x[src] + step, big), "amin")
         cand.scatter_reduce_(0, src, torch.where(valid, x[dst] + step, big), "amin")
-        nx = torch.minimum(x, _combine(data, cand, "min"))
+        nx = torch.minimum(x, _combine(group, cand, "min"))
         changed = bool((nx < x).any())
         x, it = nx, it + 1
     return x, it
 
 
-def sssp(data, *, source: int = 0, max_iters: int = 64) -> tuple[torch.Tensor, int]:
-    d0 = torch.full((data.num_vertices,), 1e9, dtype=torch.float32, device=data.edges.device)
+def _sssp_operands(edges, mask, v: int, group, source: int, max_iters: int):
+    d0 = torch.full((v,), 1e9, dtype=torch.float32, device=edges.device)
     d0[source] = 0.0
-    return _min_propagate(data, d0, 1.0, max_iters)
+    return _min_propagate(edges, mask, group, d0, 1.0, max_iters)
+
+
+def _wcc_operands(edges, mask, v: int, group, max_iters: int):
+    l0 = torch.arange(v, dtype=torch.float32, device=edges.device)
+    return _min_propagate(edges, mask, group, l0, 0.0, max_iters)
+
+
+def pagerank(data, *, iterations: int = 20, damping: float = 0.85) -> torch.Tensor:
+    """PageRank over an ``EngineData`` or a ``ShardedEngineData`` (every rank calls it)."""
+    return _pagerank_operands(data.edges, data.mask, data.degrees, data.num_vertices, _group_of(data), iterations,
+                              damping)
+
+
+def sssp(data, *, source: int = 0, max_iters: int = 64) -> tuple[torch.Tensor, int]:
+    return _sssp_operands(data.edges, data.mask, data.num_vertices, _group_of(data), source, max_iters)
 
 
 def wcc(data, *, max_iters: int = 64) -> tuple[torch.Tensor, int]:
-    l0 = torch.arange(data.num_vertices, dtype=torch.float32, device=data.edges.device)
-    return _min_propagate(data, l0, 0.0, max_iters)
+    return _wcc_operands(data.edges, data.mask, data.num_vertices, _group_of(data), max_iters)
 
 
 def comm_volume_per_iteration(data: EngineData, bytes_per_value: int = 8) -> int:
     """Paper §6.4 COM metric: each mirror sends + receives one value/iteration."""
     return 2 * data.mirrors * bytes_per_value
+
+
+# --------------------------------------------------------------------------
+# Pure-operand query programs (the serving path, launch/serve.py).
+#
+# ``query_program`` returns a callable that takes the pack OPERANDS (edges,
+# mask, degrees[, source]) explicitly, so one program answers queries against
+# whatever pack a live StreamingEngine holds when it is called, across
+# rescales and rebuild commits. Over a ``group`` the operands are this rank's
+# row block and the combine is an ``all_reduce``, as in the apps above. The
+# reference caches its programs because each is a jit; here a program is a
+# plain function with nothing to compile, so nothing is cached.
+
+QUERY_KINDS = ("pagerank", "sssp", "wcc")
+
+
+def query_program(
+    kind: str,
+    *,
+    num_vertices: int,
+    group: GraphGroup | None = None,
+    iterations: int = 20,
+    damping: float = 0.85,
+    max_iters: int = 64,
+):
+    """The pure-operand program for ``kind``. Call signatures: pagerank
+    ``(edges, mask, degrees) → ranks``; sssp ``(edges, mask, source=0) →
+    (dist, iters)``; wcc ``(edges, mask) → (lab, iters)``. Unknown kinds
+    raise ``ValueError``."""
+    v, iterations, damping, max_iters = int(num_vertices), int(iterations), float(damping), int(max_iters)
+    if kind == "pagerank":
+        def program(edges, mask, degrees):
+            return _pagerank_operands(edges, mask, degrees, v, group, iterations, damping)
+    elif kind == "sssp":
+        def program(edges, mask, source=0):
+            return _sssp_operands(edges, mask, v, group, int(source), max_iters)
+    elif kind == "wcc":
+        def program(edges, mask):
+            return _wcc_operands(edges, mask, v, group, max_iters)
+    else:
+        raise ValueError(f"unknown query kind {kind!r} (expected one of {QUERY_KINDS})")
+    return program

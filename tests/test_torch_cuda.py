@@ -2,7 +2,9 @@
 flash_attention, decode_attention) against its plain version, the paths on
 the card against the same paths on the CPU, and the streaming engine's device
 programs against their host mirrors and the ``pack_slots`` oracle, and the
-multi-rank layout on the one card (ranks over gloo, one rank over NCCL).
+multi-rank layout on the one card (ranks over gloo, one rank over NCCL), and
+the serving front end on the card against the same queries and loop on the
+CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 no JAX, so it runs where only PyTorch is installed:
@@ -945,3 +947,53 @@ def test_sigkill_drill_on_the_card(cuda, tmp_path):
     assert got_e.tobytes() == want_e.tobytes() and got_m.tobytes() == want_m.tobytes()
     assert res["records"][0]["events_jsonl"] == res["records"][1]["events_jsonl"]
     assert all(r["group"][2] == "cuda:0" for r in res["records"])
+
+
+# ------------------------------------------------------------ serving
+@pytest.mark.parametrize("regions", [4, 7])
+def test_query_engine_on_cuda_equals_cpu(cuda, ordered, regions):
+    """``QueryEngine`` on a card's live pack against the same queries on a CPU
+    engine over the same orderer input: PageRank within rtol 1e-5 (atomics
+    sum in another order), SSSP and WCC exact with equal iteration counts."""
+    from repro_torch.launch.serve import QueryEngine
+    from repro_torch.stream import IncrementalOrderer, StreamingEngine
+
+    g, src, dst = ordered
+    engines = {dev: StreamingEngine(IncrementalOrderer(src.astype(np.int64), dst.astype(np.int64), g.num_vertices,
+                                                       regions=regions), device=dev) for dev in ("cuda", "cpu")}
+    got, want = (QueryEngine(engines[dev]) for dev in ("cuda", "cpu"))
+    got.warm()
+    (pr, elapsed), (pr_cpu, _) = got.query("pagerank"), want.query("pagerank")
+    assert pr.device.type == "cuda" and elapsed > 0
+    torch.testing.assert_close(pr.cpu(), pr_cpu, rtol=1e-5, atol=1e-8)
+    for kind, source in (("sssp", 0), ("sssp", 17), ("wcc", 0)):
+        (a, it), _ = got.query(kind, source)
+        (b, it_cpu), _ = want.query(kind, source)
+        assert it == it_cpu and torch.equal(a.cpu(), b)
+
+
+def test_serve_loop_ticks_on_cuda_stay_bit_identical(cuda):
+    """A day of path 9 (b)'s scenario at scale 7 on the card (both rungs on
+    the device, an ingest every tick, probes every 8 ticks): the pack equals
+    ``pack_slots`` after every event (the loop checks), and the trajectory
+    equals the same loop's on the CPU."""
+    import torch_serve_harness as SH
+
+    s = dict(SH.SCENARIO, scale=7, day_ticks=48, days=1, ingest_batch=16)
+    ordered = SH.build_ordered(**s)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        loop, _, policy, eng = SH.build_loop(ordered, device=dev, **s)
+        probes = SH.record_probes(loop)
+        SH.run_scenario(loop, **s)
+        assert eng.data.edges.device.type == dev and eng.verify_bit_identity()
+        runs[dev] = (SH.trajectory(loop, policy), probes, eng.rung_counts)
+    (tr, probes, rungs), (tr_cpu, probes_cpu, rungs_cpu) = runs["cuda"], runs["cpu"]
+    assert tr == tr_cpu and rungs == rungs_cpu and len(tr["k_path"]) > 2
+    assert rungs["partial"] > 0 and rungs["full"] > 0 and len(probes) > 0
+    for (_, kind, _, a, it), (_, _, _, b, it_cpu) in zip(probes, probes_cpu):
+        assert it == it_cpu
+        if kind == "pagerank":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-8)
+        else:
+            np.testing.assert_array_equal(a, b)

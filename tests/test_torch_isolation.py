@@ -43,13 +43,37 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.core.hier_order", "repro_torch.stream.spill",
         "repro_torch.elastic.controller", "repro_torch.elastic.autoscale", "repro_torch.elastic.resharder",
         "repro_torch.elastic.expert_place", "repro_torch.checkpoint", "repro_torch.checkpoint.store",
-        "repro_torch.obs.log", "repro_torch.obs.trace_export",
+        "repro_torch.obs.log", "repro_torch.obs.trace_export", "repro_torch.launch.serve",
     } <= set(result["modules"])
+
+
+_SERVE_PROBE = r"""
+import json, runpy, sys
+sys.path.insert(0, sys.argv[2])
+import torch_serve_harness
+torch_serve_harness.port_modules()
+runpy.run_path(sys.argv[1], run_name="serve_path_import_only")
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "repro.")) or m == "repro")
+print(json.dumps({"bad": bad, "serve": "repro_torch.launch.serve" in sys.modules}))
+"""
+
+
+def test_serve_path_and_its_harness_load_no_jax():
+    """``tools/serve_path.py`` and the harness its ranks run
+    (``tests/torch_serve_harness.py``) stand on the port alone."""
+    out = subprocess.run(
+        [sys.executable, "-c", _SERVE_PROBE, str(ROOT / "tools" / "serve_path.py"), str(ROOT / "tests")],
+        capture_output=True, text=True, check=True, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+    )
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result == {"bad": [], "serve": True}
 
 
 def test_no_source_line_imports_jax_or_the_reference():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    files += [ROOT / "tests" / "torch_serve_harness.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
     assert hits == []
 
