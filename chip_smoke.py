@@ -8,14 +8,18 @@
 Phases, in order; any failure raises and the script exits nonzero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. the slice-1 graph's GEO order starts in a spawned, daemonic child process
+   (the RMAT graph at ``--scale``, then ``geo_order`` on the host, 100-190 s
+   at scale 20), which runs while phases 3-9 and paths 6 (b) and 8 (b) run
+   here; the parent waits for it before slice 1;
+3. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``,
    ``full_reorder``, the full rung's greedy),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
    check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
    instantiation issues HGMMA;
-3. RMAT graph and GEO order on the host;
-4. kernel parity, each kernel against its plain PyTorch version on the card:
+4. the same RMAT graph in this process (the packs and the stream paths use it);
+5. kernel parity, each kernel against its plain PyTorch version on the card:
    ``segment_rf`` exactly, at the main path's row shapes and at edge cases
    (rows not a multiple of 8, widths not a multiple of the tile, all-PAD
    rows, single-id rows, W = 1, a row wider than 65535 tiles);
@@ -34,13 +38,75 @@ Phases, in order; any failure raises and the script exits nonzero:
    points: the per-tile partials and the merged path (split kernel, then
    combine kernel), the latter also at ``cache_len`` 0, 1 and either side of
    a split boundary, at Gq 1 and 8, and with a bf16 query;
-5. slice 1, the graph path, with every launch count set to 0 just before it:
+6. path 10, the LM harness's forward pass (``repro_torch.models``), with
+   every launch count set to 0 just before it (it launches none of the
+   kernels: the reference's models compute attention in jnp, and the port's
+   in torch ops): (a) ``examples/serve_decode.py``'s loop on gemma3-4b at
+   full width in bf16 (random weights from a seed): ``forward_train``'s CE
+   within 2 of ln V, 8 prompts of 2,048 tokens, a prefill and 64 greedy
+   decode steps, their times beside their bounds (decode: the weights and
+   the K/V the masks leave, over the card's memory rate; prefill: the
+   matmuls at the bf16 rate and the attention at the float32 rate), tokens/s
+   and peak memory; the first step's logits against a fresh prefill over
+   prompt + first token in float32 within 1e-3, and in bf16 against the
+   float32 forward on the same weights: the prefill within 6e-2, the first
+   step within 1.1 times the prefill's distance, and the step against the
+   fresh bf16 prefill below that distance;
+   (b) deepseek-moe-16b, mamba2-1.3b, hymba-1.5b, whisper-small and
+   phi-3-vision at full width and depth 2 in float32: CE near ln V, prefill
+   against the full forward and decode against a fresh prefill within 1e-3
+   (relative L2), MoE decode held for finiteness and its dropped entries
+   printed (counted by a layer loop of the smoke's own, its logits held to
+   the model's within 1e-3); (c) the 10 smoke configs in float32 against the committed JAX
+   fixture ``tests/torch_lm_fixture.npz`` at rtol 1e-4, atol 1e-5;
+7. path 9 (b), the reference's serving scenario (``benchmarks/bench_serve.py``
+   at its defaults, as ``tests/torch_serve_harness.py`` builds it), with
+   every launch count set to 0 just before it: RMAT scale 9, 4 regions, two
+   days of 96 ticks with an ingest of 32 updates every tick, span
+   ``differential`` and full ``device`` on the card, the autoscaler free in
+   both directions, a probe every 8 ticks; gates: the trajectory (decisions,
+   moved edges, served, shed, SLO misses, modeled p50 / p99, every record)
+   equal to the committed ``tests/torch_serve_trajectory.json``, at least
+   two scale-outs and two scale-ins with no flap pair, the pack
+   bit-identical after every event, every ``segment_rf`` launch (two a span
+   selection) exact and every greedy launch equal to the host mirror, each
+   kernel launched. ``--cards 4`` runs (c): (b) on one rank, then over 4
+   NCCL ranks, a card each, every rank's trajectory equal to the committed
+   one and each probe's answer to the one-rank run's;
+8. path 4, the rungs with their selection on the card, at RMAT scale 14
+   (8 regions, objective k in [4, 32]), with every launch count set to 0
+   just before it: an engine in ``differential`` span and full mode and one
+   in ``device`` full mode with two batches in flight, one rebuild aborted by
+   a rescale and one committed, each event checked against ``pack_slots``;
+   ``segment_rf`` must launch exactly twice per selection on the card, and
+   the greedy kernel (``full_reorder``) in both engines, each launch tapped
+   and held against the host mirror (permutation and step count).
+   (its second part, the device programs alone, runs after path 9 (a));
+9. path 8, the control plane, at path 4's size and rung settings (RMAT-14,
+   8 regions, span ``differential``, full ``device`` with two batches in
+   flight), with every launch count set to 0 just before it: (a) in this
+   process, an ``ElasticController`` on an injected clock with a
+   ``SlotCheckpoint`` and an autoscaler drives the engine: batches through
+   ``ingest``, a host that stops heartbeating (``poll``: 8 -> 7 and a WAL
+   scale barrier), a backlog (``autoscale``: 7 -> 9), the full rung forced
+   and one more batch in flight; then the kill (the live slots kept, the
+   controller, engine and orderer dropped, the card's memory freed), the
+   restore from disk, ``from_restored``, ``report_failure`` (9 -> 8) and two
+   batches in which both rungs fire again. Gates: the restored slots
+   byte-equal to the live ones at the kill, the restored pack equal to
+   ``pack_slots``, ``verify_bit_identity`` after every event, the event seqs
+   and the JSONL round trip, the checkpoint counters, a valid Chrome trace,
+   every ``segment_rf`` launch exact and every greedy launch equal to the
+   host mirror, each kernel launched before and after the restore. Then
+   path 6 (b) (item 15) and path 8 (b), the drill (item 17), which need no
+   RMAT-20 order, run here before the wait;
+10. slice 1, the graph path, with every launch count set to 0 just before it:
    CEP packs at k = 4, 8, 16, 64, 128 (RF and mirrors measured on the card,
    equal to the numpy oracle), rescale 16→17 and 8→12→8 with the
    from-scratch byte check, re-checked RF equal to the oracle, PageRank /
    SSSP / WCC on the packs at k = 17 and k = 4; ``segment_rf`` must launch
    once per pack and re-checked rescale, and no other kernel;
-6. slice 2, the entry points of the other three kernels, with every launch
+11. slice 2, the entry points of the other three kernels, with every launch
    count set to 0 just before it: ``ops.chunked_spmv`` on the GEO-ordered
    edge list with weights 1/deg[src] and the k = 4 PageRank vector as x —
    (a) 16 chunks with full windows, (b) 128 chunks with full windows,
@@ -62,7 +128,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``pack_windows`` at full size, and the call is timed again, whole and in
    phases (H2D and range check, packing, x windows, kernel, add-back,
    out-of-window pass), with a synchronize after each phase;
-7. path 3, the streaming engine at full width, with every launch count set
+12. path 3, the streaming engine at full width, with every launch count set
    to 0 just before it: the slice-1 graph and GEO order in an
    ``IncrementalOrderer`` of 16 regions, a ``StreamingEngine`` on the card
    with device span repair, 3 batches of 1,024 ``SyntheticStream`` updates
@@ -87,20 +153,12 @@ Phases, in order; any failure raises and the script exits nonzero:
    rtol 1e-4, SSSP and WCC exactly with the same iteration counts); the
    probe times by kind and the modeled latencies are readings. No kernel
    launches there either;
-8. path 4, the rungs with their selection on the card, at RMAT scale 14
-   (8 regions, objective k in [4, 32]), with every launch count set to 0
-   just before it: an engine in ``differential`` span and full mode and one
-   in ``device`` full mode with two batches in flight, one rebuild aborted by
-   a rescale and one committed, each event checked against ``pack_slots``;
-   ``segment_rf`` must launch exactly twice per selection on the card, and
-   the greedy kernel (``full_reorder``) in both engines, each launch tapped
-   and held against the host mirror (permutation and step count). Then,
-   with the counts set to 0 again, the rungs' device programs alone against
-   their host mirrors: the span order and selection on the worst span of
+13. the rungs' device programs alone against their host mirrors, with the
+   counts set to 0 again: the span order and selection on the worst span of
    path 3's engine after path 9 (a)'s rescale; the greedy kernel on path 4's
    slots (beside its plain version's step loop on the card) and on an
    RMAT-16 graph's slots;
-9. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
+14. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
    once under ``build/multirank/`` for the ranks to load): (a) g = 4 ranks as
    2 processes × 2 over gloo, every rank on the one card (NCCL refuses two
    ranks of one communicator on one device), started by the port's
@@ -118,7 +176,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    its time (the first also loads the ops' kernels in that process).
    ``--cards 4`` runs slice 1 and then only (a) and (c): g = 4 over NCCL, one
    card per rank;
-10. path 6, the streaming engine over the same 4 gloo ranks on the one card
+15. path 6 ((b) runs after path 8 (a), before the wait for the order), the
+   streaming engine over the same 4 gloo ranks on the one card
    (``--stream-rank-worker``, started by ``launch_local_cluster``), each rank
    an orderer replica and a ``StreamingEngine`` over the group, its pack
    checked bit-identical to ``pack_slots`` after every event: (a) the slice-1
@@ -137,7 +196,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    RSS; the parent holds the ranks' ladders, logs and rescale counts equal
    and the bytes sent and received to the cross-rank bytes, and launches
    nothing. ``--cards 4`` runs (c): (a) and (b) over NCCL, a card a rank;
-11. path 7, the out-of-core pipeline (``--oc-worker``) over the same 4 gloo
+16. path 7, the out-of-core pipeline (``--oc-worker``) over the same 4 gloo
    ranks on the one card: a stateless RMAT plan of scale 17 in 4 shards,
    each rank regenerating what it needs; (A) a stride-2 sample's locality
    rank, each rank's shards' chunk-load histogram summed by ``psum_host``,
@@ -156,22 +215,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``geo_order`` are readings; the oracle orders its chunks, and takes the
    ``geo_order`` reading, in a pool of 4 spawned processes. ``--cards 4``
    runs (c): the same over NCCL, a card a rank;
-12. path 8, the control plane, at path 4's size and rung settings (RMAT-14,
-   8 regions, span ``differential``, full ``device`` with two batches in
-   flight), with every launch count set to 0 just before it: (a) in this
-   process, an ``ElasticController`` on an injected clock with a
-   ``SlotCheckpoint`` and an autoscaler drives the engine: batches through
-   ``ingest``, a host that stops heartbeating (``poll``: 8 -> 7 and a WAL
-   scale barrier), a backlog (``autoscale``: 7 -> 9), the full rung forced
-   and one more batch in flight; then the kill (the live slots kept, the
-   controller, engine and orderer dropped, the card's memory freed), the
-   restore from disk, ``from_restored``, ``report_failure`` (9 -> 8) and two
-   batches in which both rungs fire again. Gates: the restored slots
-   byte-equal to the live ones at the kill, the restored pack equal to
-   ``pack_slots``, ``verify_bit_identity`` after every event, the event seqs
-   and the JSONL round trip, the checkpoint counters, a valid Chrome trace,
-   every ``segment_rf`` launch exact and every greedy launch equal to the
-   host mirror, each kernel launched before and after the restore. (b) the
+17. path 8 (b) (run after path 6 (b), before the wait for the order), the
    SIGKILL drill of ``tests/torch_faults_harness.py`` on 4 gloo ranks on the
    one card (escalation parked, 12 batches of 1,024), process 1's ranks
    killed after batch 5, the lease board's detection within the lease + 2 s,
@@ -179,21 +223,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    the restore point, the final slots and the reassembled final pack
    byte-equal to the no-failure host oracle, the two ranks' event logs
    equal. ``--cards 4`` runs (c): (b) over NCCL, a card a rank;
-13. path 9 (b), the reference's serving scenario (``benchmarks/bench_serve.py``
-   at its defaults, as ``tests/torch_serve_harness.py`` builds it), with
-   every launch count set to 0 just before it: RMAT scale 9, 4 regions, two
-   days of 96 ticks with an ingest of 32 updates every tick, span
-   ``differential`` and full ``device`` on the card, the autoscaler free in
-   both directions, a probe every 8 ticks; gates: the trajectory (decisions,
-   moved edges, served, shed, SLO misses, modeled p50 / p99, every record)
-   equal to the committed ``tests/torch_serve_trajectory.json``, at least
-   two scale-outs and two scale-ins with no flap pair, the pack
-   bit-identical after every event, every ``segment_rf`` launch (two a span
-   selection) exact and every greedy launch equal to the host mirror, each
-   kernel launched. ``--cards 4`` runs (c): (b) on one rank, then over 4
-   NCCL ranks, a card each, every rank's trajectory equal to the committed
-   one and each probe's answer to the one-rank run's;
-14. each kernel's time (CUDA events) beside its bound, the plain version's
+18. each kernel's time (CUDA events) beside its bound, the plain version's
    time and, where one PyTorch call computes the same function, that call's
    time, at the paths' full-size shapes; ``segment_rf`` on the card alone
    (calls captured in a CUDA graph) and as a caller pays it (back-to-back
@@ -211,7 +241,7 @@ Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
 ``{"streamrank": ...}`` line of path 6's, an ``{"outofcore": ...}`` line of
 path 7's, a ``{"control": ...}`` line of path 8's, a ``{"serve": ...}`` line
-of path 9's, then the card line, one
+of path 9's, an ``{"lm": ...}`` line of path 10's, then the card line, one
 ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
@@ -222,7 +252,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
+import multiprocessing
 import pathlib
 import shutil
 import subprocess
@@ -347,6 +379,31 @@ OC_ORACLE_WORKERS = 4
 # (8 -> 4); a snapshot every 4 batches, so the restore replays a WAL tail.
 # (c) with --cards 4: (b) over NCCL, a card a rank.
 CONTROL_INTERVAL, CONTROL_AFTER = 3, 2
+# Path 10, the LM harness's forward pass (models/, configs/). (a)
+# examples/serve_decode.py's loop on gemma3-4b at full width in bf16: 8
+# prompts of 2,048 tokens (past the 1,024-token window of the local layers),
+# a prefill, 64 greedy decode steps. The cache holds 3,072 positions: there
+# the reference's halving cuts the key axis into three 1,024-wide blocks,
+# where 2,112 (prompt and steps) would give 33 blocks of 64. Its first decode
+# step is held against a fresh prefill over prompt + first token, in
+# float32 within LM_DEPTH2_RTOL. In bf16, over 34 layers, rounding moves the
+# logits by about 4.4e-2 from a float32 forward on the same weights, and two
+# bf16 runs of other shapes by about 3.4e-2 from each other, so bf16 is held
+# to the float32 forward: the prefill within LM_BF16_RTOL, the first decode
+# step within LM_BF16_DECODE_SHARE times the prefill's distance, and the
+# step against the fresh bf16 prefill below that distance. (b) the families
+# (a) does not cover, at full width and depth 2, in float32 (TF32 off): 2
+# prompts of 1,024 tokens, a cache of 2,048. (c) the 10 smoke configs in
+# float32 against the committed fixture of the JAX package's outputs.
+LM_ARCH = "gemma3-4b"
+LM_BATCH, LM_PROMPT, LM_STEPS, LM_MAX_LEN = 8, 2048, 64, 3072
+LM_CE_SLACK = 2.0  # |CE - ln V| at random init, as tests/test_models_smoke.py
+LM_DEPTH2 = ("deepseek-moe-16b", "mamba2-1.3b", "hymba-1.5b", "whisper-small", "phi-3-vision-4.2b")
+LM_DEPTH2_BATCH, LM_DEPTH2_PROMPT, LM_DEPTH2_MAX_LEN = 2, 1024, 2048
+LM_DEPTH2_RTOL = 1e-3  # float32, relative L2; also (a)'s float32 decode against a fresh prefill
+LM_FIXTURE_RTOL, LM_FIXTURE_ATOL = 1e-4, 1e-5  # the CPU parity tests' tolerance
+LM_BF16_RTOL = 6e-2  # (a) bf16 prefill against float32, relative L2 (4.371e-2 read on the H100)
+LM_BF16_DECODE_SHARE = 1.1  # (a) bf16 decode's distance from float32 over the prefill's (1.017 read)
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -2147,6 +2204,317 @@ def serve_over_cards(cards: list, phases: dict, segment_rf) -> dict:
     return read
 
 
+def graph_digest(g) -> str:
+    """A digest of a graph's edge list, to hold two processes' graphs equal."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in (g.src, g.dst):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def order_job(scale: int, edge_factor: int, out: str) -> None:
+    """The slice-1 graph's GEO order, in a spawned child process: the same
+    RMAT graph (a pure function of its seed), ``geo_order`` over it, and the
+    permutation, the time it took and the graph's edge count and digest (the
+    parent holds its own graph to them) written to ``out``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import ordering
+    from repro_torch.core.graph import rmat_graph
+
+    g = rmat_graph(scale=scale, edge_factor=edge_factor, seed=0)
+    t0 = time.perf_counter()
+    order = ordering.geo_order(g, k_min=4, k_max=128)
+    np.savez(out, order=order, geo_order_s=time.perf_counter() - t0, num_edges=g.num_edges, digest=graph_digest(g))
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.double() - want.double()) / torch.linalg.vector_norm(want.double()))
+
+
+def lm_last_logits(M, model, cfg, batch: dict) -> torch.Tensor:
+    """The full forward (no cache, as ``forward_train`` runs it): the
+    last position's logits."""
+    x = M._embed(cfg, model, batch["tokens"], batch)
+    enc_out = M._encode(cfg, model, batch["frames"]) if cfg.family == "encdec" else None
+    x, _ = M._run_layers(cfg, model, x, enc_out=enc_out)
+    x = M.layers.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    return M._final_logits(model, cfg, x[:, -1:])[:, 0]
+
+
+def lm_attention_ops(cfg, batch: int, q_len: int, kv_len: int) -> float:
+    """Q·Kᵀ and P·V operations over the key positions each layer's mask
+    leaves, for q_len queries ending at position kv_len - 1."""
+    ops = 0.0
+    for w in cfg.layer_windows():
+        vis = sum(min(qp + 1, w) if w else qp + 1 for qp in range(kv_len - q_len, kv_len))
+        ops += 4.0 * cfg.head_dim * cfg.num_heads * batch * vis
+    return ops
+
+
+def lm_full_width(dev) -> dict:
+    """Path 10 (a): examples/serve_decode.py's loop on gemma3-4b at full width."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    cfg = configs.get_config(LM_ARCH)
+    b, s, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    targets = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    out: dict = {"arch": cfg.name, "batch": b, "prompt": s, "steps": steps, "max_len": LM_MAX_LEN,
+                 "params": n_params, "param_count": cfg.param_count(), "param_bytes": param_bytes,
+                 "init_s": init_s}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        loss, metrics = M.forward_train(model, cfg, {"tokens": prompts, "targets": targets})
+        ce = float(metrics["ce_loss"])
+        out["train_s"] = time.perf_counter() - t0
+        check(bool(torch.isfinite(loss)) and abs(ce - float(np.log(cfg.vocab_size))) < LM_CE_SLACK,
+              f"path 10 (a): forward_train's CE {ce} is not within {LM_CE_SLACK} of ln V = {np.log(cfg.vocab_size):.4f}")
+        out["ce_loss"], out["ln_v"] = ce, float(np.log(cfg.vocab_size))
+
+        cache = M.init_cache(cfg, b, LM_MAX_LEN, dtype=torch.bfloat16, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        logits, cache = M.forward_prefill(model, cfg, {"tokens": prompts}, cache)
+        ev[1].record()
+        tok = logits.argmax(-1)[:, None]
+        first_tok, finite = tok, torch.isfinite(logits).all()
+        for i in range(steps):
+            logits, cache = M.forward_decode(model, cfg, tok, cache)
+            ev[i + 2].record()
+            if i == 0:
+                first_logits = logits.clone()
+            finite &= torch.isfinite(logits).all()
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        check(bool(finite), "path 10 (a): non-finite logits in prefill or decode")
+        check(cache["pos"] == s + steps, f"path 10 (a): the cache ends at {cache['pos']}, expected {s + steps}")
+        step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(steps)]
+        out["prefill_ms"] = ev[0].elapsed_time(ev[1])
+        out["decode_ms"] = ev[1].elapsed_time(ev[steps + 1])
+        out["decode_ms_per_step"] = out["decode_ms"] / steps
+        out["decode_step_ms_median"] = float(np.median(step_ms))
+        out["decode_step_ms_min_max"] = [min(step_ms), max(step_ms)]
+        out["tokens_per_s"] = b * steps / (out["decode_ms"] / 1e3)
+        out["serve_wall_s"] = wall_s
+        del cache
+        # Consistency: the first decode step against a fresh prefill over
+        # prompt + first token; then the same in float32 on the same weights.
+        full_tokens = {"tokens": torch.cat([prompts, first_tok], dim=1)}
+        ref, _ = M.forward_prefill(model, cfg, full_tokens, M.init_cache(cfg, b, LM_MAX_LEN, dtype=torch.bfloat16,
+                                                                         device=dev))
+        torch.cuda.synchronize()
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        model = model.float()
+        cache = M.init_cache(cfg, b, LM_MAX_LEN, device=dev)
+        _, cache = M.forward_prefill(model, cfg, {"tokens": prompts}, cache)
+        dec32, cache = M.forward_decode(model, cfg, first_tok, cache)
+        del cache
+        ref32, _ = M.forward_prefill(model, cfg, full_tokens, M.init_cache(cfg, b, LM_MAX_LEN, device=dev))
+        torch.cuda.synchronize()
+        out["f32_check_s"] = time.perf_counter() - t0
+    out["consistency_rel_l2"] = rel_l2(first_logits, ref)
+    out["bf16_vs_f32_rel_l2"] = {"prefill": rel_l2(ref, ref32), "decode": rel_l2(first_logits, ref32)}
+    out["f32_consistency_rel_l2"] = rel_l2(dec32, ref32)
+    check(out["f32_consistency_rel_l2"] < LM_DEPTH2_RTOL,
+          f"path 10 (a): in float32, decode against a fresh prefill, relative L2 {out['f32_consistency_rel_l2']:.3e} "
+          f"(limit {LM_DEPTH2_RTOL})")
+    d16 = out["bf16_vs_f32_rel_l2"]
+    check(d16["prefill"] < LM_BF16_RTOL,
+          f"path 10 (a): the bf16 prefill against the float32 one, relative L2 {d16['prefill']:.3e} "
+          f"(limit {LM_BF16_RTOL})")
+    check(d16["decode"] <= LM_BF16_DECODE_SHARE * d16["prefill"],
+          f"path 10 (a): the bf16 decode against the float32 prefill, relative L2 {d16['decode']:.3e}, is more than "
+          f"{LM_BF16_DECODE_SHARE} times the bf16 prefill's {d16['prefill']:.3e}")
+    check(out["consistency_rel_l2"] < d16["prefill"],
+          f"path 10 (a): in bf16, decode against a fresh prefill, relative L2 {out['consistency_rel_l2']:.3e}, is not "
+          f"below the bf16 prefill's distance from the float32 one ({d16['prefill']:.3e})")
+    # Bounds, from this run's shapes. Decode: every weight read once a step,
+    # and the K/V each layer's mask leaves (a local layer's window, a global
+    # layer's whole prefix), 2 bytes each. Prefill: the layers' matmuls at the
+    # bf16 rate (2 operations a weight a token; the embedding is a gather),
+    # the lm head's last position and the attention in float32 outside the
+    # tensor cores (the reference's mea_attention computes in float32).
+    kv_row = 2 * b * cfg.num_kv_heads * cfg.head_dim * 2
+    kv_bytes = [kv_row * sum(min(pos + 1, w) if w else pos + 1 for w in cfg.layer_windows())
+                for pos in range(s, s + steps)]
+    out["decode_bound_ms"] = (param_bytes + float(np.mean(kv_bytes))) / H100_BYTES_PER_S * 1e3
+    out["decode_bound_by"] = "bytes"
+    embed_params = cfg.vocab_size * cfg.d_model
+    mm_ops = 2.0 * (n_params - embed_params) * b * s
+    head_ops = 2.0 * b * cfg.d_model * cfg.vocab_size
+    attn_ops = lm_attention_ops(cfg, b, s, s)
+    out["prefill_ops"] = {"matmul_bf16": mm_ops, "attention_f32": attn_ops, "head_f32": head_ops}
+    out["prefill_bound_ms"] = (mm_ops / H100_BF16_OPS_PER_S + (attn_ops + head_ops) / H100_FP32_OPS_PER_S) * 1e3
+    out["prefill_bound_by"] = "operations"
+    out["tokens_per_s_bound"] = b / (out["decode_bound_ms"] / 1e3)
+    log(f"path 10 (a) {cfg.name} at full width, bf16: {n_params:,} parameters built ({cfg.param_count():,} by "
+        f"param_count(); {param_bytes / 1e9:.3f} GB), init {init_s:.3f} s; forward_train CE {ce:.4f} "
+        f"(ln V {np.log(cfg.vocab_size):.4f}) in {out['train_s']:.3f} s")
+    log(f"path 10 (a) serve: prefill {b} x {s} tokens {out['prefill_ms']:.3f} ms (bound {out['prefill_bound_ms']:.3f} "
+        f"ms, operations); decode {steps} steps {out['decode_ms_per_step']:.3f} ms a step (median "
+        f"{out['decode_step_ms_median']:.3f}, bound {out['decode_bound_ms']:.3f} ms, bytes), "
+        f"{out['tokens_per_s']:.1f} tokens/s (bound {out['tokens_per_s_bound']:.1f}); peak memory "
+        f"{out['peak_mem_gb']:.3f} GB in bf16")
+    log(f"path 10 (a) consistency: decode against a fresh prefill, relative L2 {out['consistency_rel_l2']:.3e} in "
+        f"bf16 (limit: the bf16 prefill's distance from the float32 one on the same weights, {d16['prefill']:.3e}, "
+        f"itself limited to {LM_BF16_RTOL}; the bf16 decode's {d16['decode']:.3e}, limit "
+        f"{LM_BF16_DECODE_SHARE} times the prefill's), {out['f32_consistency_rel_l2']:.3e} in float32 (limit "
+        f"{LM_DEPTH2_RTOL}); the float32 runs {out['f32_check_s']:.3f} s")
+    del model
+    return out
+
+
+def lm_moe_drops(M, cfg, model, x, cache: dict, q_offset: int) -> tuple:
+    """A MoE model's layers one by one, as ``model._block`` runs them, on the
+    cache ``cache`` (a copy the caller gives up): each layer's router input
+    rms_norm(x + attention, ln2) also routed by ``layers.moe_route`` alone, to
+    count the (token, k) entries past the capacity. Returns (the entries
+    dropped a layer, the last position's logits)."""
+    L = M.layers
+    windows = [w or 0 for w in cfg.layer_windows()]
+    dropped = []
+    for i, p in enumerate(model["layers"]):
+        h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+        attn, _ = L.attention_block(p, h, cfg, window=windows[i], q_offset=q_offset,
+                                    cache={"k": cache["k"][i], "v": cache["v"][i], "pos": q_offset})
+        x = x + attn
+        h = L.rms_norm(x, p["ln2"], cfg.norm_eps)
+        dropped.append(int((~L.moe_route(h.reshape(1, -1, h.shape[-1]), p["router"], cfg)["kept"]).sum()))
+        x = x + L.moe_block(p, h, cfg)[0]
+    x = L.rms_norm(x, model["final_norm"], cfg.norm_eps)
+    return dropped, M._final_logits(model, cfg, x[:, -1:])[:, 0]
+
+
+def lm_depth_two(dev, arch: str) -> dict:
+    """Path 10 (b): one family at full width and depth 2, in float32."""
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=2, **({"encoder_layers": 2} if full.encoder_layers else {}))
+    b, s = LM_DEPTH2_BATCH, LM_DEPTH2_PROMPT
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :s], "targets": torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = 0.02 * torch.randn((b, cfg.num_patches, cfg.d_model), generator=gen, device=dev)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen, device=dev)
+    out: dict = {"arch": arch, "layers": cfg.num_layers, "batch": b, "prompt": s}
+    with torch.inference_mode():
+        loss, metrics = M.forward_train(model, cfg, batch)
+        ce = float(metrics["ce_loss"])
+        check(bool(torch.isfinite(loss)) and abs(ce - float(np.log(cfg.vocab_size))) < LM_CE_SLACK,
+              f"path 10 (b) {arch}: forward_train's CE {ce} is not within {LM_CE_SLACK} of ln V")
+        out["ce_loss"], out["aux_loss"] = ce, float(metrics["aux_loss"])
+        want = lm_last_logits(M, model, cfg, batch)
+        cache = M.init_cache(cfg, b, LM_DEPTH2_MAX_LEN, device=dev)
+        logits, cache = M.forward_prefill(model, cfg, batch, cache)
+        check(bool(torch.isfinite(logits).all()), f"path 10 (b) {arch}: non-finite prefill logits")
+        out["prefill_rel_l2"] = rel_l2(logits, want)
+        check(out["prefill_rel_l2"] < LM_DEPTH2_RTOL,
+              f"path 10 (b) {arch}: prefill against the full forward, relative L2 {out['prefill_rel_l2']:.3e}")
+        if cfg.family == "moe":
+            # The counts of entries dropped, read by a layer loop of their own,
+            # whose logits are held to the model's own prefill and decode.
+            pre_drops, pre_logits = lm_moe_drops(M, cfg, model, M._embed(cfg, model, batch["tokens"], batch),
+                                                 M.init_cache(cfg, b, LM_DEPTH2_MAX_LEN, device=dev), 0)
+            dec_drops, dec_logits = lm_moe_drops(M, cfg, model, model["embed"][tokens[:, s:]],
+                                                 {k: cache[k].clone() for k in ("k", "v")}, s)
+        dec, cache = M.forward_decode(model, cfg, tokens[:, s:], cache)
+        check(bool(torch.isfinite(dec).all()), f"path 10 (b) {arch}: non-finite decode logits")
+        if cfg.family == "moe":  # drops depend on the token count: decode is held for finiteness only
+            out["dropped"] = {"prefill": pre_drops, "decode": dec_drops}
+            out["drop_loop_rel_l2"] = {"prefill": rel_l2(pre_logits, logits), "decode": rel_l2(dec_logits, dec)}
+            check(max(out["drop_loop_rel_l2"].values()) < LM_DEPTH2_RTOL,
+                  f"path 10 (b) {arch}: the drop-counting layer loop strays from the model: relative L2 "
+                  f"{out['drop_loop_rel_l2']}")
+        else:
+            ref, _ = M.forward_prefill(model, cfg, dict(batch, tokens=tokens),
+                                       M.init_cache(cfg, b, LM_DEPTH2_MAX_LEN, device=dev))
+            out["decode_rel_l2"] = rel_l2(dec, ref)
+            check(out["decode_rel_l2"] < LM_DEPTH2_RTOL,
+                  f"path 10 (b) {arch}: decode against a fresh prefill over s + 1, relative L2 "
+                  f"{out['decode_rel_l2']:.3e}")
+    torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    log(f"path 10 (b) {arch} at full width, depth 2, f32: CE {ce:.4f} (ln V {np.log(cfg.vocab_size):.4f}); prefill "
+        f"against the full forward {out['prefill_rel_l2']:.3e}"
+        + (f", decode against a fresh prefill {out['decode_rel_l2']:.3e}" if "decode_rel_l2" in out else
+           "; MoE entries dropped a layer: " + ", ".join(f"{k} {v}" for k, v in out["dropped"].items())
+           + f" (the counting loop's logits against the model's, prefill {out['drop_loop_rel_l2']['prefill']:.3e}, "
+           f"decode {out['drop_loop_rel_l2']['decode']:.3e})")
+        + f" (limit {LM_DEPTH2_RTOL}); {out['s']:.3f} s")
+    del model
+    return out
+
+
+def lm_fixture_check(dev) -> dict:
+    """Path 10 (c): the 10 smoke configs on the card against the JAX
+    package's outputs in ``tests/torch_lm_fixture.npz``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_lm_harness as LH
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    committed = LH.read_fixture()
+    check(sorted(committed) == sorted(configs.ARCH_NAMES), f"path 10 (c): the fixture holds {sorted(committed)}")
+    st = LH.FIXTURE_SETUP
+    worst = {}
+    for arch in configs.ARCH_NAMES:
+        cfg = configs.get_smoke(arch)
+        got = LH.port_outputs(cfg, LH.numpy_params(M.param_shapes(cfg)), LH.numpy_inputs(cfg, st["batch"], st["seq"]),
+                              st["max_len"], dev)
+        ratios = {}
+        for k, want in committed[arch].items():
+            check(got[k].shape == want.shape, f"path 10 (c) {arch} {k}: shape {got[k].shape}, fixture {want.shape}")
+            ratios[k] = tol_ratio(torch.from_numpy(got[k]), torch.from_numpy(want), LM_FIXTURE_RTOL, LM_FIXTURE_ATOL)
+        key = max(ratios, key=ratios.get)
+        check(ratios[key] <= 1.0, f"path 10 (c) {arch}: {key} differs from the JAX fixture "
+                                  f"({ratios[key]:.3f} of rtol {LM_FIXTURE_RTOL}, atol {LM_FIXTURE_ATOL})")
+        worst[arch] = {"leaves": len(ratios), "worst": key, "ratio": ratios[key]}
+    log(f"path 10 (c): the 10 smoke configs on the card equal the JAX fixture (rtol {LM_FIXTURE_RTOL}, atol "
+        f"{LM_FIXTURE_ATOL}); worst share of the tolerance by arch: "
+        + ", ".join(f"{a} {w['ratio']:.3f} ({w['worst']})" for a, w in worst.items()))
+    return worst
+
+
+def lm_path(dev) -> dict:
+    """Path 10: (a), (b) and (c) in turn, the card's memory freed between."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    read = {"a": lm_full_width(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    read["b"] = {}
+    for arch in LM_DEPTH2:
+        read["b"][arch] = lm_depth_two(dev, arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    read["c"] = lm_fixture_check(dev)
+    torch.cuda.synchronize()
+    read["s"] = time.perf_counter() - t0
+    return read
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
@@ -2172,7 +2540,7 @@ def main() -> int:
           f"--cards {args.cards}: 1 or 4 cards, and {torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.compat import PAD_ID
-    from repro_torch.core import cep, metrics, ordering
+    from repro_torch.core import cep, metrics
     from repro_torch.core.graph import rmat_graph
     from repro_torch.elastic.rescale_exec import EDGE_BYTES, ElasticRescaler
     from repro_torch.graphs import engine as E
@@ -2202,6 +2570,17 @@ def main() -> int:
     phases: dict = {}
     report = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
+    # The slice-1 graph's GEO order (host, 100-190 s at RMAT-20) runs in a
+    # spawned child while this process builds, checks parity and drives the
+    # paths that need no RMAT-20 order; the child is daemonic, so it ends
+    # with this process whatever happens.
+    order_out = ROOT / "build" / "order" / "geo_order.npz"
+    order_out.parent.mkdir(parents=True, exist_ok=True)
+    order_out.unlink(missing_ok=True)
+    order_proc = multiprocessing.get_context("spawn").Process(
+        target=order_job, args=(args.scale, args.edge_factor, str(order_out)), daemon=True)
+    order_proc.start()
+
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
     built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder")  # what paths 5 and 6 launch
@@ -2225,16 +2604,48 @@ def main() -> int:
               f"flash_attention: every tensor-core instantiation must hold HGMMA instructions, got {hgmma}")
         log(f"flash_attention SASS: HGMMA instructions per tensor-core instantiation {sorted(hgmma.values())}")
 
-    # ------------------------------------------------------- graph + order
+    # ------------------------------------------------------- graph
     t0 = time.perf_counter()
     g = rmat_graph(scale=args.scale, edge_factor=args.edge_factor, seed=0)
     phases["rmat_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    order = ordering.geo_order(g, k_min=4, k_max=128)
-    phases["geo_order_s"] = time.perf_counter() - t0
-    src, dst = g.src[order], g.dst[order]
     n, v = g.num_edges, g.num_vertices
-    log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s, geo_order {phases['geo_order_s']:.3f} s")
+    log(f"graph: |V|={v} |E|={n} rmat {phases['rmat_s']:.3f} s")
+
+    # Paths 6 (b) and 8 (b) on path 4's graph: they need no RMAT-20 order.
+    def run_streamrank(tag, backend, devices, steps, inputs, num_vertices) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = streamrank_path(tag, backend, MULTIRANK_PROCS, MULTIRANK_DEVS, devices, steps, inputs, num_vertices)
+        phases[f"streamrank_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 6 ({tag}): the parent launched {parent}, expected none")
+        return read
+
+    def streamrank_inputs(rungs_g) -> pathlib.Path:
+        """Path 6 (b)'s inputs: path 4's graph and its GEO order."""
+        g14, src14, dst14 = rungs_g
+        path = ROOT / "build" / "streamrank" / "rmat14.npz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, src=src14, dst=dst14, base_src=g14.src, base_dst=g14.dst)
+        return path
+
+    def run_control_drill(tag, backend, live_devices, recover_devices, graph) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        read = control_drill(tag, backend, live_devices, recover_devices, graph)
+        phases[f"control_{tag}_s"] = time.perf_counter() - t0
+        parent = read_launches()
+        check(parent == dict.fromkeys(KERNELS, 0), f"path 8 ({tag}): the parent launched {parent}, expected none")
+        return read
+
+    def check_streamrank_a(a: dict) -> None:
+        check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
+
+    def check_streamrank_b(b: dict) -> None:
+        check([(r["committed"], r["aborted"]) for r in b["log"]] == [(True, False), (False, True)],
+              f"path 6 (b): rebuild log {b['log']}")
+        check(all(n > 0 for n in b["greedy_launches"]),
+              f"path 6 (b): the greedy kernel must launch on every rank, launched {b['greedy_launches']}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     if args.cards == 1:  # the four-card call runs slice 1, path 5 (a) and (c), paths 6 (c), 7 (c), 8 (c), 9 (c) only
@@ -2355,6 +2766,106 @@ def main() -> int:
             log(f"parity {what}: max abs err {err:.3e}")
         phases["parity_s"] = time.perf_counter() - t0
 
+    if args.cards == 1:
+        # Paths 10, 9 (b), 4 and 8 (a) need no RMAT-20 order: they run while
+        # the child process orders the slice-1 graph.
+        # ------------------------------------- path 10: the LM harness's forward pass
+        reset_launches()
+        t0 = time.perf_counter()
+        lm_read = lm_path(dev)
+        torch.cuda.synchronize()
+        phases["lm_s"] = time.perf_counter() - t0
+        lm_launches = read_launches()
+        check(lm_launches == dict.fromkeys(KERNELS, 0), f"path 10 launched {lm_launches}, expected none")
+        log(f"path 10: {phases['lm_s']:.3f} s, launches {lm_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------- path 9 (b): the reference's serving scenario
+        reset_launches()
+        t0 = time.perf_counter()
+        serve_b = serve_scenario(dev, phases, segment_rf)
+        torch.cuda.synchronize()
+        phases["serve_b_s"] = time.perf_counter() - t0
+        serve_b_launches = read_launches()
+        check(serve_b_launches == {**dict.fromkeys(KERNELS, 0), **serve_b["launches"]},
+              f"path 9 (b) launched {serve_b_launches}, expected segment_rf {serve_b['launches']['segment_rf']} times, the "
+              f"greedy kernel {serve_b['launches']['full_reorder']} times, and nothing else")
+        log(f"path 9 (b): {phases['serve_b_s']:.3f} s, launches {serve_b_launches}")
+        report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                                  serve_b.pop("segment_rf_max_abs_err"))
+        del serve_b["answers"]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # --------------------------- path 4: the rungs with their selection on the card
+        reset_launches()
+        t0 = time.perf_counter()
+        rungs_read = rungs_path(dev, phases, segment_rf)
+        torch.cuda.synchronize()
+        phases["rungs_path_s"] = time.perf_counter() - t0
+        rungs_launches = read_launches()
+        check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"],
+                                 "full_reorder": len(rungs_read["greedy"])},
+              f"rungs path launched {rungs_launches}, expected segment_rf twice per selection, the greedy kernel once "
+              f"per device greedy, and nothing else")
+        log(f"rungs path: {phases['rungs_path_s']:.3f} s, launches {rungs_launches}")
+        rungs_rf = rungs_read.pop("segment_rf")
+        report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"], rungs_rf["max_abs_err"])
+
+        # ------------------------------------------------- path 8: the control plane
+        # (a) one rank in this process, the kernels tapped ((b), the drill, runs
+        # after path 7).
+        reset_launches()
+        t0 = time.perf_counter()
+        control_read = {"a": control_path(dev, rungs_read["graph"], segment_rf)}
+        torch.cuda.synchronize()
+        phases["control_a_s"] = time.perf_counter() - t0
+        control_launches = read_launches()
+        ca = control_read["a"]["launches"]
+        check(control_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(ca["segment_rf"]),
+                                   "full_reorder": sum(ca["full_reorder"])},
+              f"path 8 (a) launched {control_launches}, expected segment_rf {sum(ca['segment_rf'])} times, the greedy "
+              f"kernel {sum(ca['full_reorder'])} times, and nothing else")
+        log(f"path 8 (a): {phases['control_a_s']:.3f} s, launches {control_launches}")
+        report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
+                                                  control_read["a"].pop("segment_rf_max_abs_err"))
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------ path 6 (b): the streaming engine over ranks
+        # on path 4's graph, 4 gloo ranks (2 processes x 2) on the one card ((a),
+        # on the slice-1 graph, runs after path 5).
+        g14 = rungs_read.pop("graph")
+        streamrank_read = {"b": run_streamrank("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_B,
+                                               streamrank_inputs(g14), g14[0].num_vertices)}
+        check_streamrank_b(streamrank_read["b"])
+        streamrank_rows = streamrank_read["b"].pop("rows")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ----------------------------------------- path 8 (b): the SIGKILL drill
+        # over 4 gloo ranks on the one card, recovered on 2.
+        control_read["b"] = run_control_drill("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, ["cuda:0"] * 2, g14)
+        del g14
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -------------------------------------------- the slice-1 graph's GEO order
+    t0 = time.perf_counter()
+    order_proc.join()
+    check(order_proc.exitcode == 0, f"the GEO order's child process exited with {order_proc.exitcode}")
+    phases["order_wait_s"] = time.perf_counter() - t0
+    with np.load(order_out) as z:
+        order = z["order"]
+        phases["geo_order_s"] = float(z["geo_order_s"])
+        check(int(z["num_edges"]) == g.num_edges and str(z["digest"]) == graph_digest(g),
+              f"the GEO order's child built another graph ({int(z['num_edges'])} edges, digest {z['digest']}) than "
+              f"the parent's ({g.num_edges} edges, digest {graph_digest(g)})")
+    src, dst = g.src[order], g.dst[order]
+    log(f"graph: GEO order {phases['geo_order_s']:.3f} s in the child process; waited {phases['order_wait_s']:.3f} s "
+        f"for it after the paths that need no order")
+
     # ------------------------------------------------- slice 1: the graph path
     rescaler = ElasticRescaler()
     packs, expected_launches = {}, 0
@@ -2448,23 +2959,6 @@ def main() -> int:
         check(parent == dict.fromkeys(KERNELS, 0), f"path 5 ({tag}): the parent launched {parent}, expected none")
         return read
 
-    def run_streamrank(tag, backend, devices, steps, inputs, num_vertices) -> dict:
-        reset_launches()
-        t0 = time.perf_counter()
-        read = streamrank_path(tag, backend, MULTIRANK_PROCS, MULTIRANK_DEVS, devices, steps, inputs, num_vertices)
-        phases[f"streamrank_{tag}_s"] = time.perf_counter() - t0
-        parent = read_launches()
-        check(parent == dict.fromkeys(KERNELS, 0), f"path 6 ({tag}): the parent launched {parent}, expected none")
-        return read
-
-    def streamrank_inputs(rungs_g) -> pathlib.Path:
-        """Path 6 (b)'s inputs: path 4's graph and its GEO order."""
-        g14, src14, dst14 = rungs_g
-        path = ROOT / "build" / "streamrank" / "rmat14.npz"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        np.savez(path, src=src14, dst=dst14, base_src=g14.src, base_dst=g14.dst)
-        return path
-
     def run_outofcore(tag, backend, devices) -> dict:
         reset_launches()
         t0 = time.perf_counter()
@@ -2473,23 +2967,6 @@ def main() -> int:
         parent = read_launches()
         check(parent == dict.fromkeys(KERNELS, 0), f"path 7 ({tag}): the parent launched {parent}, expected none")
         return read
-
-    def run_control_drill(tag, backend, live_devices, recover_devices, graph) -> dict:
-        reset_launches()
-        t0 = time.perf_counter()
-        read = control_drill(tag, backend, live_devices, recover_devices, graph)
-        phases[f"control_{tag}_s"] = time.perf_counter() - t0
-        parent = read_launches()
-        check(parent == dict.fromkeys(KERNELS, 0), f"path 8 ({tag}): the parent launched {parent}, expected none")
-        return read
-
-    def check_streamrank(read: dict) -> None:
-        a, b = read["a"], read["b"]
-        check(any(e.get("repair") == "device" for e in a["events"]), "path 6 (a): no span repair ran over the ranks")
-        check([(r["committed"], r["aborted"]) for r in b["log"]] == [(True, False), (False, True)],
-              f"path 6 (b): rebuild log {b['log']}")
-        check(all(n > 0 for n in b["greedy_launches"]),
-              f"path 6 (b): the greedy kernel must launch on every rank, launched {b['greedy_launches']}")
 
     g4_gloo = ("g4_gloo_1card", "gloo", MULTIRANK_PROCS, MULTIRANK_DEVS,
                ["cuda:0"] * (MULTIRANK_PROCS * MULTIRANK_DEVS), MULTIRANK_STEPS)
@@ -2506,7 +2983,8 @@ def main() -> int:
         streamrank_read = {"a": run_streamrank("a_g4_nccl_4cards", "nccl", cards, STREAMRANK_A, ordered_npz, v),
                            "b": run_streamrank("b_g4_nccl_4cards", "nccl", cards, STREAMRANK_B,
                                                streamrank_inputs(g14), g14[0].num_vertices)}
-        check_streamrank(streamrank_read)
+        check_streamrank_a(streamrank_read["a"])
+        check_streamrank_b(streamrank_read["b"])
         for read in streamrank_read.values():
             read.pop("rows", None)
         # Path 7 (c): the out-of-core pipeline over NCCL, one card a rank.
@@ -2679,20 +3157,6 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --------------------------- path 4: the rungs with their selection on the card
-    reset_launches()
-    t0 = time.perf_counter()
-    rungs_read = rungs_path(dev, phases, segment_rf)
-    torch.cuda.synchronize()
-    phases["rungs_path_s"] = time.perf_counter() - t0
-    rungs_launches = read_launches()
-    check(rungs_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": 2 * rungs_read["selections"],
-                             "full_reorder": len(rungs_read["greedy"])},
-          f"rungs path launched {rungs_launches}, expected segment_rf twice per selection, the greedy kernel once "
-          f"per device greedy, and nothing else")
-    log(f"rungs path: {phases['rungs_path_s']:.3f} s, launches {rungs_launches}")
-    rungs_rf = rungs_read.pop("segment_rf")
-    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"], rungs_rf["max_abs_err"])
     reset_launches()
     t0 = time.perf_counter()
     stream_twins = twin_times(dev, stream_read.pop("span"), rungs_read.pop("slots"), segment_rf)
@@ -2713,16 +3177,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # --------------------------------- path 6: the streaming engine over several ranks
-    # (a) and (b) over g = 4 gloo ranks, 2 processes x 2, every rank on the one card.
-    g14 = rungs_read.pop("graph")
-    streamrank_read = {
-        "a": run_streamrank("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_A, ordered_npz, v),
-        "b": run_streamrank("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_B, streamrank_inputs(g14),
-                            g14[0].num_vertices),
-    }
-    check_streamrank(streamrank_read)
-    streamrank_rows = streamrank_read["b"].pop("rows")
+    # --------------------------------- path 6 (a): the streaming engine over several ranks
+    # over g = 4 gloo ranks, 2 processes x 2, every rank on the one card ((b) ran
+    # while the slice-1 graph was being ordered).
+    streamrank_read = {"a": run_streamrank("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4, STREAMRANK_A, ordered_npz, v),
+                       **streamrank_read}
+    check_streamrank_a(streamrank_read["a"])
     streamrank_read["a"].pop("rows", None)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2730,45 +3190,6 @@ def main() -> int:
     # ------------------------------------------- path 7: the out-of-core pipeline
     # (a) g = 4 over gloo, 2 processes x 2 ranks, every rank on the one card.
     outofcore_read = {"a": run_outofcore("a_g4_gloo_1card", "gloo", ["cuda:0"] * 4)}
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # ------------------------------------------------- path 8: the control plane
-    # (a) one rank in this process, the kernels tapped; (b) the SIGKILL drill
-    # over 4 gloo ranks on the one card, recovered on 2.
-    reset_launches()
-    t0 = time.perf_counter()
-    control_read = {"a": control_path(dev, g14, segment_rf)}
-    torch.cuda.synchronize()
-    phases["control_a_s"] = time.perf_counter() - t0
-    control_launches = read_launches()
-    ca = control_read["a"]["launches"]
-    check(control_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(ca["segment_rf"]),
-                               "full_reorder": sum(ca["full_reorder"])},
-          f"path 8 (a) launched {control_launches}, expected segment_rf {sum(ca['segment_rf'])} times, the greedy "
-          f"kernel {sum(ca['full_reorder'])} times, and nothing else")
-    log(f"path 8 (a): {phases['control_a_s']:.3f} s, launches {control_launches}")
-    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
-                                              control_read["a"].pop("segment_rf_max_abs_err"))
-    control_read["b"] = run_control_drill("b_g4_gloo_1card", "gloo", ["cuda:0"] * 4, ["cuda:0"] * 2, g14)
-    del g14
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # ------------------------------------- path 9 (b): the reference's serving scenario
-    reset_launches()
-    t0 = time.perf_counter()
-    serve_b = serve_scenario(dev, phases, segment_rf)
-    torch.cuda.synchronize()
-    phases["serve_b_s"] = time.perf_counter() - t0
-    serve_b_launches = read_launches()
-    check(serve_b_launches == {**dict.fromkeys(KERNELS, 0), **serve_b["launches"]},
-          f"path 9 (b) launched {serve_b_launches}, expected segment_rf {serve_b['launches']['segment_rf']} times, the "
-          f"greedy kernel {serve_b['launches']['full_reorder']} times, and nothing else")
-    log(f"path 9 (b): {phases['serve_b_s']:.3f} s, launches {serve_b_launches}")
-    report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
-                                              serve_b.pop("segment_rf_max_abs_err"))
-    del serve_b["answers"]
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2938,6 +3359,7 @@ def main() -> int:
         report["full_reorder"][f"streamrank_{tag}_by_rank"] = read["greedy_launches"]
     by_path["control_a"] = control_launches  # path 8 (a), in this process; (b) launches nothing
     by_path["serve_a"], by_path["serve_b"] = serve_a_launches, serve_b_launches  # path 9, in this process
+    by_path["lm"] = lm_launches  # path 10: the models call none of the kernels
     report["segment_rf"]["control_a_before_after_restore"] = control_read["a"]["launches"]["segment_rf"]
     report["full_reorder"]["control_a_before_after_restore"] = control_read["a"]["launches"]["full_reorder"]
     for tag, read in outofcore_read.items():  # path 7: the same
@@ -2954,6 +3376,7 @@ def main() -> int:
     log(json.dumps({"outofcore": outofcore_read}))
     log(json.dumps({"control": control_read}))
     log(json.dumps({"serve": {"a": serve_a, "b": serve_b}}))
+    log(json.dumps({"lm": lm_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]

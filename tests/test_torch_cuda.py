@@ -997,3 +997,71 @@ def test_serve_loop_ticks_on_cuda_stay_bit_identical(cuda):
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-8)
         else:
             np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ the LM harness
+@pytest.fixture
+def f32_exact():
+    """float32 products stay float32 (TF32 off), as on the CPU."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "gemma3-4b", "qwen3-8b", "qwen2-1.5b", "gemma2-9b",
+                                  "whisper-small", "mamba2-1.3b", "deepseek-moe-16b", "granite-moe-3b-a800m",
+                                  "hymba-1.5b"])
+def test_lm_smoke_config_on_cuda_equals_cpu(cuda, f32_exact, arch):
+    """forward_train, forward_prefill (every cache leaf) and forward_decode of
+    a smoke config on the card against the same on the CPU, in float32."""
+    import torch_lm_harness as LH
+
+    from repro_torch import configs
+    from repro_torch.models import model as LM
+
+    cfg = configs.get_smoke(arch)
+    s = LH.PARITY_SETUP
+    params, inputs = LH.numpy_params(LM.param_shapes(cfg)), LH.numpy_inputs(cfg, s["batch"], s["seq"])
+    got = LH.port_outputs(cfg, params, inputs, s["max_len"], cuda)
+    want = LH.port_outputs(cfg, params, inputs, s["max_len"], "cpu")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-5, err_msg=f"{arch} {k}")
+
+
+def test_lm_mea_attention_at_gemma3_width_on_cuda_equals_cpu(cuda, f32_exact):
+    """gemma3-4b's attention shape (8 heads over 4 KV heads, head dim 256),
+    2,048 queries over a 3,072-position cache, the 1,024 window, float32."""
+    from repro_torch.models import layers as LL
+
+    gen = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 8, 2048, 256), generator=gen)
+    k, v = (torch.randn((2, 4, 3072, 256), generator=gen) for _ in range(2))
+    kw = dict(window=1024, kv_len=2048)
+    got = LL.mea_attention(q.to(cuda), k.to(cuda), v.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu(), LL.mea_attention(q, k, v, **kw), rtol=2e-5, atol=2e-5)
+
+
+def test_lm_moe_block_at_granite_width_on_cuda_equals_cpu(cuda, f32_exact):
+    """granite-moe-3b's MoE layer at full width (40 experts padded to 48,
+    top-8, d 1536, expert width 512) over 2 x 256 tokens, float32: the
+    output, the aux loss, every token's expert ids and the kept set."""
+    from repro_torch import configs
+    from repro_torch.models import layers as LL
+
+    cfg = configs.get_config("granite-moe-3b-a800m")
+    gen = torch.Generator().manual_seed(1)
+    e, d, f = cfg.experts_alloc, cfg.d_model, cfg.moe_d_ff
+    p = {"router": 0.02 * torch.randn((d, e), generator=gen), "w1": 0.02 * torch.randn((e, d, f), generator=gen),
+         "w3": 0.02 * torch.randn((e, d, f), generator=gen), "w2": 0.02 * torch.randn((e, f, d), generator=gen)}
+    x = torch.randn((2, 256, d), generator=gen) + torch.randn(d, generator=gen)  # skewed loads: some drop
+    pc = {k: t.to(cuda) for k, t in p.items()}
+    y, aux = LL.moe_block(pc, x.to(cuda), cfg)
+    y_cpu, aux_cpu = LL.moe_block(p, x, cfg)
+    r, r_cpu = LL.moe_route(x.to(cuda).reshape(1, 512, d), pc["router"], cfg), LL.moe_route(x.reshape(1, 512, d),
+                                                                                          p["router"], cfg)
+    assert torch.equal(r["expert_ids"].cpu(), r_cpu["expert_ids"]) and torch.equal(r["kept"].cpu(), r_cpu["kept"])
+    assert not r_cpu["kept"].all() and (r_cpu["expert_ids"] < cfg.num_experts).all()
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=2e-5, atol=2e-5)
