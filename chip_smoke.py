@@ -59,6 +59,23 @@ Phases, in order; any failure raises and the script exits nonzero:
    printed (counted by a layer loop of the smoke's own, its logits held to
    the model's within 1e-3); (c) the 10 smoke configs in float32 against the committed JAX
    fixture ``tests/torch_lm_fixture.npz`` at rtol 1e-4, atol 1e-5;
+   then path 11, LM training (``repro_torch.train``, ``launch/train.py``),
+   its launch counts set to 0 just before it (it launches none of the
+   kernels either): (a) gemma3-4b at full width in bf16, 3 AdamW steps of
+   ``make_train_step`` with remat on 2 x 2,048 tokens of ``data/pipeline``,
+   each step's forward + backward and AdamW timed by CUDA events beside the
+   step's bound, tokens/s and peak memory; gates: finite losses, step 0's CE
+   within 2 of ln V, the step counter at 3, float32 moments, bf16
+   parameters, every parameter leaf moved; (b) ``launch/train.py``'s
+   ``main`` on the card at the reference launcher's defaults (qwen2-1.5b's
+   smoke config, batches of 16 x 128 over 4 hosts, a checkpoint every 50
+   steps) but 300 steps: the mean of the last 10 losses below the mean of
+   the first 5 less 1.0 (``tests/test_system.py:14``'s bar), and the step-50
+   checkpoint restored at k = 3 and k = 4 into equal trees whose next-step
+   losses equal each other and the launcher's own step 51; (c) one plain and
+   one 2-microbatch step of each of the 10 smoke configs in float32 against
+   the committed JAX fixture ``tests/torch_train_fixture.npz`` (the step's
+   scalars at rtol 1e-5, each leaf's gradient L2 and projection at 1e-4);
 7. path 9 (b), the reference's serving scenario (``benchmarks/bench_serve.py``
    at its defaults, as ``tests/torch_serve_harness.py`` builds it), with
    every launch count set to 0 just before it: RMAT scale 9, 4 regions, two
@@ -404,6 +421,21 @@ LM_DEPTH2_RTOL = 1e-3  # float32, relative L2; also (a)'s float32 decode against
 LM_FIXTURE_RTOL, LM_FIXTURE_ATOL = 1e-4, 1e-5  # the CPU parity tests' tolerance
 LM_BF16_RTOL = 6e-2  # (a) bf16 prefill against float32, relative L2 (4.371e-2 read on the H100)
 LM_BF16_DECODE_SHARE = 1.1  # (a) bf16 decode's distance from float32 over the prefill's (1.017 read)
+# Path 11, LM training (train/, launch/train.py). (a) gemma3-4b at full width
+# in bf16, path 10 (a)'s weights: 3 steps of make_train_step with remat, one
+# microbatch, each on data/pipeline's global batch of 2 x 2,048 tokens. The
+# schedule starts at its peak (warmup 1): the parameters are bf16 with no
+# float32 master copy, as in the reference, and the default warmup's first
+# rate, 3e-6, is below half a bf16 ulp of every weight of magnitude above
+# 1e-3, so it would move almost none. (b) launch/train.py's main at its
+# defaults but 300 steps, held to the bar of tests/test_system.py:14: at the
+# default 100 its schedule is all warmup (100 steps) and the loss falls by
+# about 0.6. (c) the 10 smoke configs against the committed JAX fixture.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 3
+TRAIN_OPT = dict(warmup_steps=1)
+TRAIN_LAUNCH_STEPS = 300
+TRAIN_LEARN_MARGIN = 1.0  # tests/test_system.py:28: mean(last 10) < mean(first 5) - 1.0
+TRAIN_SAMPLE = 4096  # elements a leaf kept to see it move
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -2515,6 +2547,208 @@ def lm_path(dev) -> dict:
     return read
 
 
+def leaf_sample(p: torch.Tensor) -> torch.Tensor:
+    """About ``TRAIN_SAMPLE`` elements of a parameter, evenly strided."""
+    flat = p.detach().reshape(-1)
+    return flat[:: max(1, flat.numel() // TRAIN_SAMPLE)].clone()
+
+
+def train_full_width(dev) -> dict:
+    """Path 11 (a): gemma3-4b's AdamW steps at full width in bf16."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline as dp
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+
+    cfg = configs.get_config(LM_ARCH)
+    b, s, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+    state = O.init_opt_state(model)
+    opt = O.OptConfig(**TRAIN_OPT)
+    train_step = S.make_train_step(cfg, opt, remat=True)
+    dc = dp.DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b)
+    before = {n: leaf_sample(p) for n, p in model.named_parameters()}
+    n_params = sum(p.numel() for p in model.parameters())
+    # AdamW's share of the step: events around the optimizer's own call.
+    real_update = O.adamw_update
+    marks: list = []
+
+    def timed_update(*args, **kw):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        out = real_update(*args, **kw)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return out
+
+    O.adamw_update = timed_update
+    rows, t0 = [], time.perf_counter()
+    for step in range(steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in dp.global_batch(dc, step).items()}
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        model, state, m = train_step(model, state, batch)
+        stop.record()
+        rows.append((start, stop, {k: v for k, v in m.items()}))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    O.adamw_update = real_update
+    read: dict = {"arch": cfg.name, "batch": b, "seq": s, "params": n_params, "opt": dict(TRAIN_OPT),
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "wall_s": wall_s, "steps": []}
+    for i, (start, stop, m) in enumerate(rows):
+        adamw_ms = marks[2 * i].elapsed_time(marks[2 * i + 1])
+        step_ms = start.elapsed_time(stop)
+        read["steps"].append({"loss": float(m["loss"]), "ce_loss": float(m["ce_loss"]),
+                              "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]), "step_ms": step_ms,
+                              "fwd_bwd_ms": start.elapsed_time(marks[2 * i]), "adamw_ms": adamw_ms,
+                              "tokens_per_s": b * s / (step_ms / 1e3)})
+    first = read["steps"][0]
+    check(all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in read["steps"]),
+          f"path 11 (a): a non-finite loss or grad norm: {read['steps']}")
+    check(abs(first["ce_loss"] - float(np.log(cfg.vocab_size))) < LM_CE_SLACK,
+          f"path 11 (a): step 0's CE {first['ce_loss']} is not within {LM_CE_SLACK} of ln V")
+    check(int(state["step"]) == steps, f"path 11 (a): the optimizer's step counter reads {int(state['step'])}")
+    moments = [t for key in ("m", "v") for _, t in M._leaves(state[key])]
+    check(all(t.dtype == torch.float32 for t in moments), "path 11 (a): a moment is not float32")
+    check(all(p.dtype == torch.bfloat16 for p in model.parameters()), "path 11 (a): a parameter is not bf16")
+    moved = {n: float((leaf_sample(p) != before[n]).float().mean()) for n, p in model.named_parameters()}
+    still = [n for n, share in moved.items() if share == 0]
+    check(not still, f"path 11 (a): {len(still)} parameter leaves did not move, e.g. {still[:4]}")
+    read["moved_share_min"] = min(moved.values())
+    read["leaves"] = len(moved)
+    # The step's bound: the forward's operations four times over (the
+    # forward, remat's recompute, and a backward of twice the forward's),
+    # the layers' matmuls at the bf16 rate, the attention (in float32, as
+    # the reference's mea_attention) and the loss's float32 logits at the
+    # float32 rate; then AdamW's bytes: each parameter and gradient (bf16)
+    # read, m and v (float32) read and written, the parameter written.
+    embed_params = cfg.vocab_size * cfg.d_model
+    tokens = b * s
+    mm_ops = 2.0 * (n_params - embed_params) * tokens
+    attn_ops = lm_attention_ops(cfg, b, s, s)
+    head_ops = 2.0 * tokens * cfg.d_model * cfg.vocab_size
+    read["ops_per_pass"] = {"matmul_bf16": mm_ops, "attention_f32": attn_ops, "loss_logits_f32": head_ops}
+    read["fwd_bwd_bound_ms"] = 4 * (mm_ops / H100_BF16_OPS_PER_S + (attn_ops + head_ops) / H100_FP32_OPS_PER_S) * 1e3
+    read["adamw_bytes"] = n_params * (2 + 2 + 2 * 4 + 2 + 2 * 4)
+    read["adamw_bound_ms"] = read["adamw_bytes"] / H100_BYTES_PER_S * 1e3
+    read["step_bound_ms"] = read["fwd_bwd_bound_ms"] + read["adamw_bound_ms"]
+    read["tokens_per_s_bound"] = tokens / (read["step_bound_ms"] / 1e3)
+    for i, r in enumerate(read["steps"]):
+        log(f"path 11 (a) {cfg.name} at full width, bf16, step {i}: loss {r['loss']:.4f} (CE {r['ce_loss']:.4f}, "
+            f"ln V {np.log(cfg.vocab_size):.4f}), grad norm {r['grad_norm']:.4f}, lr {r['lr']:.3e}; "
+            f"{r['step_ms']:.3f} ms (forward + backward {r['fwd_bwd_ms']:.3f}, AdamW {r['adamw_ms']:.3f}), "
+            f"{r['tokens_per_s']:.1f} tokens/s")
+    log(f"path 11 (a): bound {read['step_bound_ms']:.3f} ms a step (forward + backward "
+        f"{read['fwd_bwd_bound_ms']:.3f} ms, operations; AdamW {read['adamw_bound_ms']:.3f} ms, bytes), "
+        f"{read['tokens_per_s_bound']:.1f} tokens/s; peak memory {read['peak_mem_gb']:.3f} GB; every one of "
+        f"{read['leaves']} leaves moved (the least moved share {read['moved_share_min']:.3f}); {wall_s:.3f} s")
+    del model, state, before
+    return read
+
+
+def train_entry_point(dev) -> dict:
+    """Path 11 (b): launch/train.py's main on the card, then its step-50
+    checkpoint restored at k = 3 and k = 4."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.data import pipeline as dp
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import steps as S
+
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = LT.main(["--ckpt-dir", str(ckpt), "--steps", str(TRAIN_LAUNCH_STEPS)])
+    torch.cuda.synchronize()
+    read: dict = {"s": time.perf_counter() - t0, "loop_s": run["seconds"], "checkpoints": run["checkpoints"]}
+    losses = run["losses"]
+    check(run["model"]["embed"].device.type == "cuda", "path 11 (b): the launcher did not train on the card")
+    check(np.isfinite(losses).all(), "path 11 (b): a non-finite loss")
+    read["first5"], read["last10"] = float(np.mean(losses[:5])), float(np.mean(losses[-10:]))
+    check(read["last10"] < read["first5"] - TRAIN_LEARN_MARGIN,
+          f"path 11 (b): the mean of the last 10 losses {read['last10']:.4f} is not below the first 5's "
+          f"{read['first5']:.4f} less {TRAIN_LEARN_MARGIN}")
+    want_ckpts = list(range(50, TRAIN_LAUNCH_STEPS, 50))
+    check(run["checkpoints"] == want_ckpts, f"path 11 (b): checkpoints at {run['checkpoints']}, expected {want_ckpts}")
+    cfg = configs.get_smoke("qwen2-1.5b")
+    opt = O.OptConfig(total_steps=TRAIN_LAUNCH_STEPS)
+    template = LT.checkpoint_tree(run["model"], O.init_opt_state(run["model"]))
+    gb = {k: torch.from_numpy(v).to(dev)
+          for k, v in dp.global_batch(dp.DataConfig(cfg.vocab_size, 128, 16), 51).items()}
+    trees = {}
+    for k in (3, 4):
+        trees[k], touched = store.restore(ckpt, 50, k_new=k, template=template)
+        read[f"restore_k{k}_bytes_touched"] = int(touched)
+    p3, p4 = (dict(M._leaves(trees[k]["params"])) for k in (3, 4))
+    o3, o4 = (dict(M._leaves(trees[k]["opt"])) for k in (3, 4))
+    same = p3.keys() == p4.keys() and all(np.array_equal(p3[n], p4[n]) for n in p3)
+    same = same and o3.keys() == o4.keys() and all(torch.equal(o3[n], o4[n]) for n in o3)
+    same = same and int(trees[3]["opt"]["step"]) == int(trees[4]["opt"]["step"]) == 51
+    check(same, "path 11 (b): the step-50 checkpoint restored at k = 3 and k = 4 gives two different trees")
+    nxt = {k: float(S.make_train_step(cfg, opt)(M.params_from_numpy(cfg, trees[k]["params"], device=dev),
+                                                 trees[k]["opt"], gb)[2]["loss"]) for k in (3, 4)}
+    read["next_loss"] = {"k3": nxt[3], "k4": nxt[4], "launcher_step_51": losses[51]}
+    check(nxt[3] == nxt[4], f"path 11 (b): the next-step losses from k = 3 and k = 4 differ: {nxt}")
+    check(abs(nxt[3] - losses[51]) <= 1e-6 * abs(losses[51]),
+          f"path 11 (b): the restored next-step loss {nxt[3]} is not the launcher's own step 51, {losses[51]}")
+    log(f"path 11 (b) launch/train.py main on the card, qwen2-1.5b smoke, {TRAIN_LAUNCH_STEPS} steps of 16 x 128, "
+        f"4 hosts: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the first 5 {read['first5']:.4f}, of the last 10 "
+        f"{read['last10']:.4f}); the step-50 checkpoint restored at k = 3 and 4: equal trees, next-step loss "
+        f"{nxt[3]:.6f} (the launcher's step 51: {losses[51]:.6f}); {read['s']:.3f} s")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return read
+
+
+def train_fixture_check(dev) -> dict:
+    """Path 11 (c): the 10 smoke configs' train steps on the card against
+    the JAX package's in ``tests/torch_train_fixture.npz``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_lm_harness as LH
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+
+    committed = LH.read_train_fixture()
+    want = sorted((a, mb) for a in configs.ARCH_NAMES for mb in LH.TRAIN_MODES)
+    check(sorted(committed) == want, f"path 11 (c): the fixture holds {sorted(committed)}")
+    worst = {}
+    for arch, mb in want:
+        cfg = configs.get_smoke(arch)
+        got = LH.port_train_outputs(cfg, LH.numpy_params(M.param_shapes(cfg)), LH.train_inputs(cfg), dev, mb)
+        ratios = LH.train_fixture_ratios(got, committed[(arch, mb)])
+        key = max(ratios, key=ratios.get)
+        check(ratios[key] <= 1.0, f"path 11 (c) {arch}, {mb} microbatches: {key} differs from the JAX fixture "
+                                  f"({ratios[key]:.3f} of its tolerance)")
+        worst[f"{arch}/mb{mb}"] = {"readings": len(ratios), "worst": key, "ratio": ratios[key]}
+    log(f"path 11 (c): the 10 smoke configs' train steps on the card equal the JAX fixture (rtol "
+        f"{LH.TRAIN_RTOL}, gradients {LH.TRAIN_GRAD_RTOL}); worst share of the tolerance: "
+        + ", ".join(f"{k} {w['ratio']:.3f}" for k, w in worst.items()))
+    return worst
+
+
+def train_path(dev) -> dict:
+    """Path 11: (a), (b) and (c) in turn, the card's memory freed between."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    read = {"a": train_full_width(dev)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    read["b"] = train_entry_point(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    read["c"] = train_fixture_check(dev)
+    torch.cuda.synchronize()
+    read["s"] = time.perf_counter() - t0
+    return read
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
@@ -2778,6 +3012,18 @@ def main() -> int:
         lm_launches = read_launches()
         check(lm_launches == dict.fromkeys(KERNELS, 0), f"path 10 launched {lm_launches}, expected none")
         log(f"path 10: {phases['lm_s']:.3f} s, launches {lm_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------- path 11: LM training
+        reset_launches()
+        t0 = time.perf_counter()
+        train_read = train_path(dev)
+        torch.cuda.synchronize()
+        phases["train_s"] = time.perf_counter() - t0
+        train_launches = read_launches()
+        check(train_launches == dict.fromkeys(KERNELS, 0), f"path 11 launched {train_launches}, expected none")
+        log(f"path 11: {phases['train_s']:.3f} s, launches {train_launches}")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3377,6 +3623,7 @@ def main() -> int:
     log(json.dumps({"control": control_read}))
     log(json.dumps({"serve": {"a": serve_a, "b": serve_b}}))
     log(json.dumps({"lm": lm_read}))
+    log(json.dumps({"train": train_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]

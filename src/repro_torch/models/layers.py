@@ -9,16 +9,33 @@ gemma/qwen/phi variants.
 
 Mixed dtypes promote as in jnp (bf16 with f32 gives f32): every contraction
 goes through ``_einsum``, which casts its operands to their promoted type.
+
+The reference's ``jax.checkpoint`` sites (``nothing_saveable``) go through
+``remat``: under autograd backward recomputes the wrapped body from its
+inputs; with gradients off (serving under ``torch.inference_mode()``) the
+body is a direct call.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from . import dist as _dist
 
 NEG_INF = -1e30
+
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records, as ``jax.checkpoint(fn,
+    policy=nothing_saveable)``: only the inputs are saved and backward runs
+    ``fn`` again. Non-reentrant, so checkpoints nest (a layer's holds its
+    attention's) and parameters read inside ``fn`` get their gradients. The
+    forwards draw no random numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
@@ -132,9 +149,8 @@ def mea_attention(
     q_step = bq * max(1, block_q // bq)
     dev = q.device
 
-    out = torch.empty((b, hq, sq, hd), dtype=q.dtype, device=dev)
-    for q0 in range(0, sq, q_step):
-        n = min(q_step, sq - q0)
+    def rows(q0: int, n: int, q, k, v):
+        """The n query rows from q0 over every key block."""
         qc = q[:, :, q0 : q0 + n].float().reshape(b, hkv, g * n, hd)
         q_pos = (q_offset + q0 + torch.arange(n, device=dev)).repeat(g)
         m = torch.full((b, hkv, g * n), NEG_INF, dtype=torch.float32, device=dev)
@@ -155,7 +171,15 @@ def mea_attention(
             acc = acc * alpha[..., None] + torch.matmul(p, vc)
             m = m_new
         o = acc / torch.clamp_min(l, 1e-30)[..., None]
-        out[:, :, q0 : q0 + n] = o.reshape(b, hq, n, hd).to(q.dtype)
+        return o.reshape(b, hq, n, hd).to(q.dtype)
+
+    # Each query slice is a remat site (the reference checkpoints its q-step):
+    # backward recomputes the slice's online softmax instead of keeping its
+    # (G·n, bk) score blocks.
+    out = torch.empty((b, hq, sq, hd), dtype=q.dtype, device=dev)
+    for q0 in range(0, sq, q_step):
+        n = min(q_step, sq - q0)
+        out[:, :, q0 : q0 + n] = remat(rows, q0, n, q, k, v)
     return out
 
 
@@ -344,10 +368,9 @@ def _ssd_chunked(xbar, dA, B_, C_, chunk: int):
     cc = C_.reshape(b, c, q, n)
 
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xbar.device))[None, :, :, None]
-    st = torch.zeros((b, h, pdim, n), dtype=xbar.dtype, device=xbar.device)
-    ys = []
-    for i in range(c):
-        xbc, dac, bbc, ccc = xb[:, i], da[:, i], bb[:, i], cc[:, i]
+
+    def step(st_prev, xbc, dac, bbc, ccc):
+        """One chunk: (the state after it, its outputs)."""
         cums = torch.cumsum(dac.float(), dim=1)  # (B,q,H)
         li = cums[:, :, None, :] - cums[:, None, :, :]  # (B,i,j,H)
         l_mat = torch.where(tri, torch.exp(li), 0.0)
@@ -356,10 +379,17 @@ def _ssd_chunked(xbar, dA, B_, C_, chunk: int):
         y_diag = _einsum("bijh,bjhp->bihp", m.to(xbc.dtype), xbc)
         decay = torch.exp(cums[:, -1:, :] - cums).to(xbc.dtype)  # (B,q,H)
         st_c = _einsum("bjn,bjh,bjhp->bhpn", bbc, decay, xbc)
-        y_off = _einsum("bqn,bhpn,bqh->bqhp", ccc, st, torch.exp(cums).to(xbc.dtype))
+        y_off = _einsum("bqn,bhpn,bqh->bqhp", ccc, st_prev, torch.exp(cums).to(xbc.dtype))
         chunk_decay = torch.exp(cums[:, -1, :]).to(xbc.dtype)  # (B,H)
-        st = st * chunk_decay[:, :, None, None] + st_c
-        ys.append(y_diag + y_off)
+        return st_prev * chunk_decay[:, :, None, None] + st_c, y_diag + y_off
+
+    # Each chunk step is a remat site, as in the reference: the O(q²·H)
+    # intra-chunk tensors are recomputed in backward, not kept.
+    st = torch.zeros((b, h, pdim, n), dtype=xbar.dtype, device=xbar.device)
+    ys = []
+    for i in range(c):
+        st, y_c = remat(step, st, xb[:, i], da[:, i], bb[:, i], cc[:, i])
+        ys.append(y_c)
     y = torch.stack(ys, dim=1).reshape(b, s, h, pdim)
     return y, st
 

@@ -243,7 +243,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, *, dtype=torch.float32, devi
 
 def params_to_numpy(model: CausalLM) -> dict:
     """The inverse of ``params_from_numpy``: the reference's stacked tree as
-    numpy arrays (bfloat16 leaves come back as float32)."""
+    numpy arrays (bfloat16 leaves come back as float32), each a copy that a
+    later update of the model leaves as it is."""
     out: dict = {}
     for path, _ in _leaves(param_shapes(model.cfg)):
         if path[0] in _STACKED:
@@ -255,7 +256,7 @@ def params_to_numpy(model: CausalLM) -> dict:
         node = out
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = t.cpu().numpy()
+        node[path[-1]] = t.to("cpu", copy=True).numpy()
     return out
 
 
@@ -357,22 +358,29 @@ def _block(cfg: ModelConfig, p, x, window: int, *, q_offset: int, cache_l, kv_le
     return x, aux, new_cache
 
 
-def _run_layers(cfg, model, x, *, q_offset: int = 0, caches=None, kv_len=None, enc_out=None):
+def _run_layers(cfg, model, x, *, q_offset: int = 0, caches=None, kv_len=None, enc_out=None, remat: bool = True):
     """Every decoder layer in turn, each writing its leaves of ``caches`` in
-    place. Returns (x, aux)."""
+    place. Returns (x, aux). With ``remat`` (training without caches) each
+    layer's body is a remat site: backward recomputes it from its input."""
     windows = [w or 0 for w in cfg.layer_windows()]
     if caches is not None and x.shape[1] == 1:
         enc_out = None  # decode: encdec's cross K/V come from the cache
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, enc_out, blk, window):
+        return _block(cfg, blk, x, window, q_offset=q_offset, cache_l=None, kv_len=kv_len, enc_out=enc_out)[:2]
+
     for i, blk in enumerate(model["layers"]):
-        cache_l = None
-        if caches is not None:
+        if caches is None:
+            args = (x, enc_out, blk, windows[i])
+            x, aux_l = layers.remat(body, *args) if remat else body(*args)
+        else:
             cache_l = {k: v[i] for k, v in caches.items() if k != "pos"}
-        x, aux_l, new_cache = _block(cfg, blk, x, windows[i], q_offset=q_offset, cache_l=cache_l, kv_len=kv_len,
-                                     enc_out=enc_out)
-        for key, new in new_cache.items():
-            if new is not cache_l[key]:  # the attention K/V were written in place
-                cache_l[key].copy_(new)
+            x, aux_l, new_cache = _block(cfg, blk, x, windows[i], q_offset=q_offset, cache_l=cache_l, kv_len=kv_len,
+                                         enc_out=enc_out)
+            for key, new in new_cache.items():
+                if new is not cache_l[key]:  # the attention K/V were written in place
+                    cache_l[key].copy_(new)
         aux = aux + aux_l
     return x, aux
 
@@ -389,34 +397,44 @@ def _embed(cfg, params, tokens, batch_extras):
 
 def _encode(cfg, params, frames):
     """Whisper encoder over stub frame embeddings (B, Se, D): non-causal,
-    every window 0 (global)."""
-    x = frames
-    for p in params["encoder"]:
+    every window 0 (global). Each layer's body is a remat site."""
+
+    def body(x, p):
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         attn, _ = layers.attention_block(p, h, cfg, window=0, causal=False)
         x = x + attn
         h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-        x = x + layers.mlp_block(p, h, cfg.act)
+        return x + layers.mlp_block(p, h, cfg.act)
+
+    x = frames
+    for p in params["encoder"]:
+        x = layers.remat(body, x, p)
     return layers.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def chunked_ce_loss(x, embed, targets, mask=None, *, chunk: int = 512, softcap=None, lm_head=None):
     """Cross-entropy with sequence-chunked logits (never materializes
-    (B, S, V) f32). x: (B,S,D); embed: (V,D) (tied) or lm_head (D,V)."""
+    (B, S, V) f32). x: (B,S,D); embed: (V,D) (tied) or lm_head (D,V). Each
+    chunk is a remat site: backward recomputes its (B, c, V) float32 logits
+    instead of keeping every chunk's."""
     b, s, d = x.shape
     c = min(chunk, s)
     while s % c:
         c //= 2
     w = (embed.T if lm_head is None else lm_head).float()  # (D, V)
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i0 in range(0, s, c):
-        logits = torch.matmul(x[:, i0 : i0 + c].float(), w)
+
+    def step(xc, w, tc):
+        logits = torch.matmul(xc.float(), w)
         if softcap is not None:
             logits = softcap * torch.tanh(logits / softcap)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[:, i0 : i0 + c, None].long())[..., 0]
-        nll = lse - gold
+        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+        return lse - gold
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i0 in range(0, s, c):
+        nll = layers.remat(step, x[:, i0 : i0 + c], w, targets[:, i0 : i0 + c])
         if mask is not None:
             mc = mask[:, i0 : i0 + c]
             tot = tot + (nll * mc).sum()
@@ -424,21 +442,23 @@ def chunked_ce_loss(x, embed, targets, mask=None, *, chunk: int = 512, softcap=N
         else:
             tot = tot + nll.sum()
             cnt = cnt + b * c
-        del logits
     return tot / torch.clamp_min(cnt, 1.0)
 
 
 # ----------------------------------------------------------------- public API
-def forward_train(params, cfg: ModelConfig, batch: dict):
+def forward_train(params, cfg: ModelConfig, batch: dict, *, remat: bool = True):
     """batch: tokens (B,S) int, targets (B,S) int, optional patch_embeds /
-    frames. Returns (loss + 0.01 · aux, {"ce_loss", "aux_loss"}): the loss
-    only; a caller that trains takes its gradient."""
+    frames. Returns (loss + 0.01 · aux, {"ce_loss", "aux_loss"}); a caller
+    that trains takes the loss's gradient. ``remat`` makes each layer's body
+    a remat site; the encoder's bodies, the attention's query slices, the SSD
+    chunks and the loss's chunks are remat sites always. With gradients off
+    every site is a direct call."""
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens, batch)
     enc_out = None
     if cfg.family == "encdec":
         enc_out = _encode(cfg, params, batch["frames"])
-    x, aux = _run_layers(cfg, params, x, enc_out=enc_out)
+    x, aux = _run_layers(cfg, params, x, enc_out=enc_out, remat=remat)
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     loss = chunked_ce_loss(
         x, params["embed"], batch["targets"],

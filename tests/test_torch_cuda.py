@@ -1065,3 +1065,55 @@ def test_lm_moe_block_at_granite_width_on_cuda_equals_cpu(cuda, f32_exact):
     assert not r_cpu["kept"].all() and (r_cpu["expert_ids"] < cfg.num_experts).all()
     torch.testing.assert_close(y.cpu(), y_cpu, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(aux.cpu(), aux_cpu, rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.parametrize("mb", [1, 2])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "hymba-1.5b", "granite-moe-3b-a800m"])
+def test_lm_train_step_on_cuda_equals_cpu(cuda, f32_exact, arch, mb):
+    """Two train steps of a smoke config on the card against the same on the
+    CPU, in float32: the step's scalars and every leaf's gradient at the CPU
+    parity tests' tolerances (the readings path 11 (c) holds to the JAX
+    fixture), and the updated parameters."""
+    import torch_lm_harness as LH
+
+    from repro_torch import configs
+    from repro_torch.models import model as LM
+    from repro_torch.train import optimizer as LO
+
+    cfg = configs.get_smoke(arch)
+    params, inputs = LH.numpy_params(LM.param_shapes(cfg)), LH.train_inputs(cfg)
+    got = LH.port_train_outputs(cfg, params, inputs, cuda, mb)
+    want = LH.port_train_outputs(cfg, params, inputs, "cpu", mb)
+    ratios = LH.train_fixture_ratios(got, LH.train_fixture_subset(want))
+    assert max(ratios.values()) <= 1.0, max(ratios, key=ratios.get)
+    for k in want:
+        if k.startswith("grad/"):
+            rel = np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-30)
+            assert rel < LH.TRAIN_GRAD_RTOL, (arch, mb, k, rel)
+        elif k.startswith("params/"):
+            leaf = k.split("/", 1)[1]
+            LH.assert_updates_close(got[k], want[k], got[f"grad/{leaf}"], want[f"grad/{leaf}"], want["lr"],
+                                    LO.OptConfig().weight_decay, (arch, mb, leaf))
+
+
+def test_lm_training_entry_points_default_to_cuda(cuda, tmp_path):
+    """``launch.train.main`` with no ``--device`` trains on the card, and a
+    model built with no device there takes its steps on the card."""
+    from repro_torch import configs
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as LM
+    from repro_torch.train import optimizer as LO
+    from repro_torch.train import steps as LS
+
+    read = LT.main(["--steps", "3", "--batch", "4", "--seq", "16", "--hosts", "2", "--ckpt-every", "2",
+                    "--ckpt-dir", str(tmp_path)])
+    assert read["model"]["embed"].device.type == "cuda" and read["state"]["step"].device.type == "cuda"
+    assert int(read["state"]["step"]) == 3 and np.isfinite(read["losses"]).all() and read["checkpoints"] == [2]
+    cfg = configs.get_smoke("gemma3-4b")
+    model = LM.init_params(cfg, generator=torch.Generator(device="cuda").manual_seed(0), dtype=torch.bfloat16)
+    state = LO.init_opt_state(model)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 40), device="cuda") for k in ("tokens", "targets")}
+    model, state, m = LS.make_train_step(cfg, LO.OptConfig())(model, state, batch)
+    assert m["loss"].device.type == "cuda" and state["m"]["embed"].dtype == torch.float32
+    assert model["embed"].dtype == torch.bfloat16 and torch.isfinite(m["loss"])

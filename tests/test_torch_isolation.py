@@ -49,6 +49,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.configs.gemma3_4b", "repro_torch.configs.qwen3_8b", "repro_torch.configs.qwen2_1_5b",
         "repro_torch.configs.gemma2_9b", "repro_torch.configs.whisper_small", "repro_torch.configs.mamba2_1_3b",
         "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.granite_moe_3b", "repro_torch.configs.hymba_1_5b",
+        "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.steps", "repro_torch.launch.train",
     } <= set(result["modules"])
 
 
@@ -76,10 +77,13 @@ def test_serve_path_and_its_harness_load_no_jax():
 
 
 def test_no_source_line_imports_jax_or_the_reference():
-    """``tools/lm_fixture.py`` is the one exception: it runs the JAX package,
-    on the CPU, to write the fixture that path 10 (c) reads."""
+    """Three tools are the exceptions: they run the JAX package on the CPU,
+    ``tools/lm_fixture.py`` and ``tools/train_fixture.py`` to write the
+    fixtures that paths 10 (c) and 11 (c) read, ``tools/lm_bf16_parity.py`` to
+    hold the port's bf16 forward to the reference's."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)")
-    tools = [f for f in sorted((ROOT / "tools").glob("*.py")) if f.name != "lm_fixture.py"]
+    exempt = {"lm_fixture.py", "train_fixture.py", "lm_bf16_parity.py"}
+    tools = [f for f in sorted((ROOT / "tools").glob("*.py")) if f.name not in exempt]
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools
     files += [ROOT / "tests" / "torch_serve_harness.py", ROOT / "tests" / "torch_lm_harness.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1) if pattern.match(line)]
@@ -93,6 +97,7 @@ def test_no_exception_handler_on_the_kernel_path():
     files += sorted((PORT / "stream").glob("*.py")) + [PORT / "core" / "hier_order.py"]
     files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
     files += sorted((PORT / "models").glob("*.py")) + [ROOT / "tests" / "torch_lm_harness.py"]
+    files += sorted((PORT / "train").glob("*.py")) + [PORT / "launch" / "train.py"]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if re.match(r"^\s*(try|except)\b", line)]
     assert hits == []
