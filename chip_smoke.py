@@ -76,6 +76,24 @@ Phases, in order; any failure raises and the script exits nonzero:
    one 2-microbatch step of each of the 10 smoke configs in float32 against
    the committed JAX fixture ``tests/torch_train_fixture.npz`` (the step's
    scalars at rtol 1e-5, each leaf's gradient L2 and projection at 1e-4);
+   then path 12, the LM over ranks (``models/dist.py``,
+   ``train/compression.py``, ``launch/dryrun.py``), its launch counts set to
+   0 just before it (it launches none of the kernels; each rank's own
+   counts must stay 0 too): four gloo ranks, one process each, on the one
+   card; (a) sequence-parallel decode of gemma3-4b at full width in bf16 on
+   a 2 x 2 ("data", "model") grid, path 10's prompts and 64 greedy steps
+   over a cache of 3,072 split in two slices; gates: on the first two steps
+   only the owner's slice changes, at the written position only, and every
+   rank of model index 0 decodes its rows again on one rank, fed the same
+   tokens, within 6e-2 relative L2 at every step (and in float32 at 6 layers
+   within rtol and atol 5e-4); readings: prefill and decode ms, tokens/s,
+   the all-gather's ms and bytes a step and peak memory, by rank; (b)
+   compressed data-parallel gradients of qwen2-1.5b at depth 2 in float32
+   on a 4 x 1 grid, 3 steps carrying the error; gates: the reduced
+   gradients byte-equal across ranks, within 0.05 of the uncompressed mean,
+   the new error exactly g - q·scale; (c) the dry run's plan of every cell,
+   then one step of each cell whose plan fits one card (its run set equal to
+   the plan's, every result finite), peak memory beside the plan's bytes;
 7. path 9 (b), the reference's serving scenario (``benchmarks/bench_serve.py``
    at its defaults, as ``tests/torch_serve_harness.py`` builds it), with
    every launch count set to 0 just before it: RMAT scale 9, 4 regions, two
@@ -258,7 +276,8 @@ Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
 ``{"streamrank": ...}`` line of path 6's, an ``{"outofcore": ...}`` line of
 path 7's, a ``{"control": ...}`` line of path 8's, a ``{"serve": ...}`` line
-of path 9's, an ``{"lm": ...}`` line of path 10's, then the card line, one
+of path 9's, an ``{"lm": ...}`` line of path 10's, a ``{"train": ...}`` line
+of path 11's, an ``{"lmrank": ...}`` line of path 12's, then the card line, one
 ``{"kernels": [...]}`` JSON line
 and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 without the repository's ``src/`` beside this file, it exits nonzero and
@@ -267,9 +286,11 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import multiprocessing
 import pathlib
@@ -436,6 +457,30 @@ TRAIN_OPT = dict(warmup_steps=1)
 TRAIN_LAUNCH_STEPS = 300
 TRAIN_LEARN_MARGIN = 1.0  # tests/test_system.py:28: mean(last 10) < mean(first 5) - 1.0
 TRAIN_SAMPLE = 4096  # elements a leaf kept to see it move
+# Path 12, the LM over ranks (models/dist.py, train/compression.py,
+# launch/dryrun.py): four gloo ranks, one process each, on the one card (NCCL
+# refuses two ranks of one communicator on one device). (a) sequence-parallel
+# decode on a 2 x 2 ("data", "model") grid: gemma3-4b at full width in bf16,
+# path 10's seeded weights regenerated on every rank, path 10's 8 prompts of
+# 2,048 tokens (4 a data index), a cache of 3,072 split into two slices of
+# 1,536, 64 greedy steps. Each rank of model index 0 decodes its rows again
+# on one rank (no distribution, a whole cache), fed the same tokens, and its
+# SP logits are held to that within LM_BF16_RTOL (relative L2) at every step;
+# the same in float32 at one cycle of SP_F32_LAYERS layers over SP_F32_STEPS
+# steps within SP_F32_TOL. (b) compressed data-parallel gradients on a 4 x 1
+# grid: qwen2-1.5b at its published widths, depth cut to DP_LAYERS, float32,
+# DP_ROWS x DP_SEQ tokens a rank from data/pipeline's host shards, DP_STEPS
+# steps carrying the error. (c) the dry run's plan for every cell, then
+# --run of the cells whose plan fits one card.
+SP_GRID = (2, 2)
+SP_WRITE_STEPS = 2  # the first decode steps' cache writes checked slice by slice
+SP_F32_LAYERS, SP_F32_STEPS = 6, 4  # one cycle of gemma3-4b's 5 local layers and 1 global
+SP_F32_TOL = 5e-4  # rtol and atol, tests/test_multidevice.py:120
+DP_ARCH, DP_LAYERS, DP_ROWS, DP_SEQ, DP_STEPS = "qwen2-1.5b", 2, 4, 512, 3
+DP_REL_BOUND = 0.05  # tests/test_multidevice.py:146
+LMRANK_RANKS = 4
+LMRANK_GROUP_TIMEOUT_S = 300.0
+LMRANK_TIMEOUT_S = 900.0
 # (|E|, g, processes, k_old, k_new) -> (migrated, across ranks, across processes)
 # edges, by the port's cep.scale_plan at RMAT-20's 15,701,711 edges.
 MULTIRANK_PLAN_COUNTS = {
@@ -2749,6 +2794,328 @@ def train_path(dev) -> dict:
     return read
 
 
+def lmrank_sp(group, dev) -> dict:
+    """Path 12 (a) on this rank: SP decode of gemma3-4b on the 2 x 2 grid."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import multihost as MH
+    from repro_torch.models import dist as D
+    from repro_torch.models import model as M
+
+    grid = MM.make_test_mesh(*SP_GRID, group=group)
+    dist = D.Distribution(mesh=grid)
+    coords = grid.coords
+    cfg = configs.get_config(LM_ARCH)
+    b, s, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    lo, hi = dist.batch_rows(b)
+    slo, shi = dist.seq_slice(LM_MAX_LEN)
+    gather = {"calls": 0, "s": 0.0, "bytes": 0}
+    real_gather = MH.all_gather_rows
+
+    def timed_gather(t, line):  # models/dist.py reads MH.all_gather_rows at each call
+        t0 = time.perf_counter()
+        res = real_gather(t, line)
+        gather["s"] += time.perf_counter() - t0
+        gather["calls"] += 1
+        gather["bytes"] += t.numel() * t.element_size() * (line.size - 1)  # received from the line's others
+        return res
+
+    MH.all_gather_rows = timed_gather
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), dtype=torch.bfloat16, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    rows = prompts[lo:hi]
+    out: dict = {"coords": coords, "rows": [lo, hi], "slice": [slo, shi]}
+    writes, sp_logits, toks = [], [], []
+    with torch.inference_mode():
+        with D.use_distribution(dist):
+            cache = M.init_cache(cfg, b, LM_MAX_LEN, dtype=torch.bfloat16, device=dev)
+            check(tuple(cache["k"].shape) == (cfg.num_layers, hi - lo, cfg.num_kv_heads, shi - slo, cfg.head_dim),
+                  f"path 12 (a): rank {group.rank}'s cache is {tuple(cache['k'].shape)}")
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
+            torch.cuda.synchronize(dev)
+            ev[0].record()
+            logits, cache = M.forward_prefill(model, cfg, {"tokens": rows}, cache)
+            ev[1].record()
+            sp_prefill = logits.float()
+            tok = logits.argmax(-1)[:, None]
+            gather.update(calls=0, s=0.0, bytes=0)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for i in range(steps):
+                pos = cache["pos"]
+                if i < SP_WRITE_STEPS:
+                    before = [cache[n].clone() for n in ("k", "v")]
+                toks.append(tok)
+                logits, cache = M.forward_decode(model, cfg, tok, cache)
+                ev[i + 2].record()
+                if i < SP_WRITE_STEPS:
+                    owner, off = slo <= pos < shi, pos - slo
+                    rest, written = True, True
+                    for old, new in zip(before, (cache["k"], cache["v"])):
+                        if owner:
+                            keep = [j for j in range(shi - slo) if j != off]
+                            rest &= torch.equal(old[:, :, :, keep], new[:, :, :, keep])
+                            written &= bool(new[:, :, :, off].any()) and not bool(old[:, :, :, off].any())
+                        else:
+                            rest &= torch.equal(old, new)
+                    writes.append({"pos": pos, "owner": owner, "rest_unchanged": bool(rest),
+                                   "written": bool(written) if owner else None})
+                    del before
+                sp_logits.append(logits.float())
+                tok = logits.argmax(-1)[:, None]
+            torch.cuda.synchronize(dev)
+            decode_wall = time.perf_counter() - t0
+        step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(steps)]
+        out.update(prefill_ms=ev[0].elapsed_time(ev[1]), decode_ms=ev[1].elapsed_time(ev[steps + 1]),
+                   decode_step_ms_median=float(np.median(step_ms)), decode_wall_s=decode_wall,
+                   gather_calls_per_step=gather["calls"] / steps, gather_ms_per_step=gather["s"] * 1e3 / steps,
+                   gather_bytes_per_step=gather["bytes"] / steps, writes=writes,
+                   finite=bool(torch.isfinite(torch.stack(sp_logits)).all()))
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        MH.all_gather_rows = real_gather
+        del cache
+        if coords["model"] == 0:  # the plain one-rank decode of the same rows, fed the same tokens
+            cache = M.init_cache(cfg, hi - lo, LM_MAX_LEN, dtype=torch.bfloat16, device=dev)
+            logits, cache = M.forward_prefill(model, cfg, {"tokens": rows}, cache)
+            out["plain_prefill_rel_l2"] = rel_l2(sp_prefill, logits.float())
+            dists = []
+            for i in range(steps):
+                logits, cache = M.forward_decode(model, cfg, toks[i], cache)
+                dists.append(rel_l2(sp_logits[i], logits.float()))
+            out["plain_rel_l2"] = {"first": dists[0], "last": dists[-1], "max": max(dists)}
+            del cache
+        del model, sp_logits
+        torch.cuda.empty_cache()
+
+        # float32 at one cycle: SP against plain within rtol / atol SP_F32_TOL
+        cfg6 = dataclasses.replace(cfg, num_layers=SP_F32_LAYERS)
+        model = M.init_params(cfg6, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+        with D.use_distribution(dist):
+            cache = M.init_cache(cfg6, b, LM_MAX_LEN, device=dev)
+            logits, cache = M.forward_prefill(model, cfg6, {"tokens": rows}, cache)
+            got, feed = [logits], []
+            for _ in range(SP_F32_STEPS):
+                feed.append(got[-1].argmax(-1)[:, None])
+                got.append(M.forward_decode(model, cfg6, feed[-1], cache)[0])
+        del cache
+        if coords["model"] == 0:
+            cache = M.init_cache(cfg6, hi - lo, LM_MAX_LEN, device=dev)
+            want = [M.forward_prefill(model, cfg6, {"tokens": rows}, cache)[0]]
+            want += [M.forward_decode(model, cfg6, t, cache)[0] for t in feed]
+            out["f32_tol_ratio"] = max(tol_ratio(g, w, SP_F32_TOL, SP_F32_TOL) for g, w in zip(got, want))
+            out["f32_max_abs"] = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            del cache
+        del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lmrank_dp(group, dev) -> dict:
+    """Path 12 (b) on this rank: compressed data-parallel gradients of
+    qwen2-1.5b (depth DP_LAYERS) on a 4 x 1 grid, every compressed
+    all-reduce tapped and checked."""
+    from repro_torch import configs
+    from repro_torch.data import pipeline as DP
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import multihost as MH
+    from repro_torch.models import model as M
+    from repro_torch.train import compression as C
+
+    grid = MM.make_rank_grid((group.size, 1), ("data", "model"), group)
+    line, n = grid.line("data"), group.size
+    cfg = dataclasses.replace(configs.get_config(DP_ARCH), num_layers=DP_LAYERS)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = M.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    dc = DP.DataConfig(vocab_size=cfg.vocab_size, seq_len=DP_SEQ, global_batch=DP_ROWS * n)
+    real, tapped = C.compressed_allreduce, []
+
+    def tap(grads, error, group_):  # make_compressed_dp_grad_fn reads it at each call
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        red, new_e = real(grads, error, group_)
+        torch.cuda.synchronize(dev)
+        tapped[:] = [dict(grads=grads, error=error, reduced=red, new_error=new_e, s=time.perf_counter() - t0)]
+        return red, new_e
+
+    C.compressed_allreduce = tap
+    fn = C.make_compressed_dp_grad_fn(lambda m, bt: M.forward_train(m, cfg, bt)[0], grid, axis="data")
+    err = {name: torch.zeros(p.shape, dtype=torch.float32, device=dev) for name, p in model.named_parameters()}
+    out: dict = {"data": grid.coords["data"], "params": sum(p.numel() for p in model.parameters()), "steps": []}
+    for step in range(DP_STEPS):
+        hb = DP.host_batch(dc, step, n, grid.coords["data"])
+        batch = {k: torch.from_numpy(hb[k]).long().to(dev) for k in ("tokens", "targets")}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss, red, new_err = fn(model, batch, err)
+        torch.cuda.synchronize(dev)
+        total_s = time.perf_counter() - t0
+        t = tapped[0]
+        names = sorted(red)
+        digest = hashlib.sha256(b"".join(red[k].cpu().numpy().tobytes() for k in names)).digest()
+        digests = MH.all_gather_rows(torch.tensor(list(digest), dtype=torch.uint8)[None], line)
+        rel, exact = 0.0, True
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for k in names:
+            C.quantize(t["grads"][k].float() + t["error"][k])
+        ev[1].record()
+        for k in names:
+            gp = t["grads"][k].float() + t["error"][k]
+            want = MH.all_reduce(gp, line, "sum") / n
+            rel = max(rel, float((red[k] - want).abs().max() / want.abs().max().clamp_min(1e-30)))
+            scale = MH.all_reduce(C._div(gp.abs().max() + 1e-12, 127.0), line, "max")
+            q = torch.clamp(torch.round(gp / scale), -127, 127)
+            exact &= torch.equal(new_err[k], (gp.double() - q.double() * scale.double()).float())
+        torch.cuda.synchronize(dev)
+        out["steps"].append({
+            "loss": float(loss), "total_ms": total_s * 1e3, "allreduce_ms": t["s"] * 1e3,
+            "grad_ms": (total_s - t["s"]) * 1e3, "quantize_ms": ev[0].elapsed_time(ev[1]),
+            "int32_bytes": sum(red[k].numel() * 4 + 4 for k in names), "max_rel_err": rel,
+            "digests_equal": bool((digests == digests[0]).all()), "error_exact": bool(exact)})
+        err = new_err
+        del red, t, loss
+        tapped.clear()
+    C.compressed_allreduce = real
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del model, err
+    torch.cuda.empty_cache()
+    return out
+
+
+def lmrank_worker(run_dir: pathlib.Path) -> int:
+    """One rank of path 12 (``--lm-rank-worker``, started by ``lmrank_path``
+    through ``launch_local_cluster``): (a) and (b) on the rank's device,
+    with the port's kernel counters read at the end. Writes ``rank{r}.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import decode_attention, edge_spmv, flash_attention, full_reorder, segment_rf
+    from repro_torch.launch import multihost as MH
+
+    group = MH.initialize_from_env(timeout_s=LMRANK_GROUP_TIMEOUT_S)
+    dev = group.torch_device
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32, as in path 10 (b)
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": flash_attention,
+               "decode_attention": decode_attention, "full_reorder": full_reorder}
+    out = {"rank": group.rank, "sp": lmrank_sp(group, dev), "dp": lmrank_dp(group, dev)}
+    out["launches"] = {name: m.launches for name, m in kernels.items()}
+    (run_dir / f"rank{group.rank}.json").write_text(json.dumps(out))
+    log(f"rank {group.rank}: SP decode {out['sp']['decode_ms'] / LM_STEPS:.3f} ms a step, compressed DP "
+        f"{[round(st['total_ms'], 1) for st in out['dp']['steps']]} ms")
+    return 0
+
+
+def lmrank_path() -> dict:
+    """Path 12 (a) and (b): four gloo ranks on the one card, each a process
+    running ``lmrank_worker``; the parent checks every rank's gates and
+    returns the readings by rank."""
+    from repro_torch.launch import multihost as MH
+
+    run_dir = ROOT / "build" / "lmrank"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = MH.spawn_local_cluster(LMRANK_RANKS, 1, [str(ROOT / "chip_smoke.py"), "--lm-rank-worker", str(run_dir)],
+                                 backend="gloo", devices=["cuda:0"] * LMRANK_RANKS, timeout=LMRANK_TIMEOUT_S,
+                                 env_extra={"PYTHONPATH": str(ROOT / "src")})
+    wall = time.perf_counter() - t0
+    for p in res.procs:
+        for line in p.stdout.splitlines():
+            log(f"path 12 {line}")
+    check(res.ok, f"path 12: a rank failed\n{res.format_logs()}")
+    ranks = [json.loads((run_dir / f"rank{r}.json").read_text()) for r in range(LMRANK_RANKS)]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    for rk in ranks:
+        r, sp, dp = rk["rank"], rk["sp"], rk["dp"]
+        check(rk["launches"] == dict.fromkeys(KERNELS, 0), f"path 12: rank {r} launched {rk['launches']}")
+        check(sp["finite"], f"path 12 (a): rank {r}'s SP logits are not finite")
+        check(len(sp["writes"]) == SP_WRITE_STEPS and all(w["rest_unchanged"] and w["written"] in (True, None)
+                                                          for w in sp["writes"]),
+              f"path 12 (a): rank {r}'s cache writes {sp['writes']}: only the owner of a position may write it")
+        if sp["coords"]["model"] == 0:
+            check(sp["plain_rel_l2"]["max"] < LM_BF16_RTOL,
+                  f"path 12 (a): rank {r}'s SP logits against the plain decode, relative L2 {sp['plain_rel_l2']} "
+                  f"(limit {LM_BF16_RTOL})")
+            check(sp["f32_tol_ratio"] <= 1.0,
+                  f"path 12 (a): in float32 at {SP_F32_LAYERS} layers, rank {r}'s SP logits miss the plain ones by "
+                  f"{sp['f32_tol_ratio']:.3f} of rtol = atol = {SP_F32_TOL}")
+        for i, st in enumerate(dp["steps"]):
+            check(st["digests_equal"], f"path 12 (b): step {i}: the reduced gradients differ across ranks")
+            check(st["max_rel_err"] < DP_REL_BOUND,
+                  f"path 12 (b): rank {r} step {i}: relative error {st['max_rel_err']:.4f} against the uncompressed "
+                  f"mean (limit {DP_REL_BOUND})")
+            check(st["error_exact"], f"path 12 (b): rank {r} step {i}: new_error is not g - q·scale")
+    owners = [[w["owner"] for w in rk["sp"]["writes"]] for rk in ranks]
+    check(all(sum(col) == 2 for col in zip(*owners)),
+          f"path 12 (a): each decode position must have one owner a data row, got {owners}")
+    decode_s = max(rk["sp"]["decode_ms"] for rk in ranks) / 1e3
+    read = {
+        "wall_s": wall, "grid": list(SP_GRID), "arch": LM_ARCH, "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "steps": LM_STEPS, "cache": LM_MAX_LEN,
+        "prefill_ms_by_rank": [rk["sp"]["prefill_ms"] for rk in ranks],
+        "decode_ms_per_step_by_rank": [rk["sp"]["decode_ms"] / LM_STEPS for rk in ranks],
+        "decode_step_ms_median_by_rank": [rk["sp"]["decode_step_ms_median"] for rk in ranks],
+        "tokens_per_s": LM_BATCH * LM_STEPS / decode_s,
+        "gather_ms_per_step_by_rank": [rk["sp"]["gather_ms_per_step"] for rk in ranks],
+        "gather_bytes_per_step_by_rank": [rk["sp"]["gather_bytes_per_step"] for rk in ranks],
+        "gather_calls_per_step": ranks[0]["sp"]["gather_calls_per_step"],
+        "peak_mem_gb_by_rank": [rk["sp"]["peak_mem_gb"] for rk in ranks],
+        "plain_rel_l2": {rk["rank"]: rk["sp"]["plain_rel_l2"] for rk in ranks if "plain_rel_l2" in rk["sp"]},
+        "plain_prefill_rel_l2": {rk["rank"]: rk["sp"]["plain_prefill_rel_l2"] for rk in ranks
+                                 if "plain_prefill_rel_l2" in rk["sp"]},
+        "f32_tol_ratio": {rk["rank"]: rk["sp"]["f32_tol_ratio"] for rk in ranks if "f32_tol_ratio" in rk["sp"]},
+        "f32_max_abs": {rk["rank"]: rk["sp"]["f32_max_abs"] for rk in ranks if "f32_max_abs" in rk["sp"]},
+        "writes": {rk["rank"]: rk["sp"]["writes"] for rk in ranks},
+        "dp": {"arch": DP_ARCH, "layers": DP_LAYERS, "tokens_per_rank": DP_ROWS * DP_SEQ,
+               "params": ranks[0]["dp"]["params"], "steps_by_rank": [rk["dp"]["steps"] for rk in ranks],
+               "peak_mem_gb_by_rank": [rk["dp"]["peak_mem_gb"] for rk in ranks]},
+    }
+    log(f"path 12 (a) SP decode over {SP_GRID} gloo ranks on one card, {LM_ARCH} bf16: prefill "
+        f"{[round(x, 1) for x in read['prefill_ms_by_rank']]} ms, decode "
+        f"{[round(x, 2) for x in read['decode_ms_per_step_by_rank']]} ms a step, {read['tokens_per_s']:.1f} tokens/s; "
+        f"all-gather {[round(x, 2) for x in read['gather_ms_per_step_by_rank']]} ms and "
+        f"{read['gather_bytes_per_step_by_rank'][0]:.0f} bytes a step a rank; peak "
+        f"{[round(x, 2) for x in read['peak_mem_gb_by_rank']]} GB; against plain: {read['plain_rel_l2']}; float32 "
+        f"tolerance ratio {read['f32_tol_ratio']}")
+    log(f"path 12 (b) compressed DP over {LMRANK_RANKS} ranks, {DP_ARCH} depth {DP_LAYERS} float32: "
+        + "; ".join(f"rank {r}: " + ", ".join(f"{st['total_ms']:.0f} ms (all-reduce {st['allreduce_ms']:.0f}, "
+                                              f"quantize {st['quantize_ms']:.2f}) rel {st['max_rel_err']:.4f}"
+                                              for st in steps)
+                    for r, steps in enumerate(read["dp"]["steps_by_rank"])))
+    return read
+
+
+def dryrun_path() -> dict:
+    """Path 12 (c): the dry run's plan for every cell, then ``--run`` of the
+    cells whose plan fits one card."""
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # a line a cell; the records are in artifacts/dryrun_torch
+        plans = DR.main(["--all", "--mesh", "both"])
+    plan_s = time.perf_counter() - t0
+    fits = sorted((r["arch"], r["shape"]) for r in plans
+                  if not r.get("skipped") and r["mesh"] == "16x16" and r["one_card"]["fits"])
+    t0 = time.perf_counter()
+    runs = DR.main(["--run"])
+    run_s = time.perf_counter() - t0
+    check(sorted((r["arch"], r["shape"]) for r in runs) == fits,
+          f"path 12 (c): --run ran {[(r['arch'], r['shape']) for r in runs]}, the plan fits {fits}")
+    check(all(r["finite"] for r in runs), "path 12 (c): a run's step gave non-finite values")
+    keep = ("arch", "shape", "step_ms", "bound_ms", "bound_by", "step_over_bound", "max_memory_allocated",
+            "memory_over_plan")
+    read = {"plan_s": plan_s, "run_s": run_s, "cells": len(plans), "fits": fits,
+            "runs": [{**{k: r[k] for k in keep}, "plan_bytes": r["plan"]["plan_bytes_per_device"],
+                      "input_bytes": r["plan"]["input_bytes_per_device"]["total"]} for r in runs]}
+    for r in read["runs"]:
+        log(f"path 12 (c) {r['arch']} x {r['shape']}: step {min(r['step_ms']):.3f} ms (bound {r['bound_ms']:.3f} ms, "
+            f"{r['bound_by']}, {r['step_over_bound']:.2f}x); peak {r['max_memory_allocated'] / 1e9:.3f} GB against "
+            f"the plan's {r['plan_bytes'] / 1e9:.3f} GB")
+    return read
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scale", type=int, default=20, help="RMAT scale: 2**scale vertices")
@@ -2759,6 +3126,7 @@ def main() -> int:
     ap.add_argument("--rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 5
     ap.add_argument("--stream-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 6
     ap.add_argument("--oc-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 7
+    ap.add_argument("--lm-rank-worker", type=pathlib.Path, help=argparse.SUPPRESS)  # one rank of path 12
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2770,6 +3138,8 @@ def main() -> int:
         return streamrank_worker(args.stream_rank_worker)
     if args.oc_worker is not None:
         return outofcore_worker(args.oc_worker)
+    if args.lm_rank_worker is not None:
+        return lmrank_worker(args.lm_rank_worker)
     check(args.cards in (1, 4) and torch.cuda.device_count() >= args.cards,
           f"--cards {args.cards}: 1 or 4 cards, and {torch.cuda.device_count()} are visible")
     sys.path.insert(0, str(ROOT / "src"))
@@ -3024,6 +3394,20 @@ def main() -> int:
         train_launches = read_launches()
         check(train_launches == dict.fromkeys(KERNELS, 0), f"path 11 launched {train_launches}, expected none")
         log(f"path 11: {phases['train_s']:.3f} s, launches {train_launches}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------ path 12: the LM over ranks
+        reset_launches()
+        t0 = time.perf_counter()
+        lmrank_read = lmrank_path()
+        phases["lmrank_ab_s"] = time.perf_counter() - t0
+        lmrank_read["dryrun"] = dryrun_path()
+        torch.cuda.synchronize()
+        phases["lmrank_s"] = time.perf_counter() - t0
+        lmrank_launches = read_launches()
+        check(lmrank_launches == dict.fromkeys(KERNELS, 0), f"path 12 launched {lmrank_launches}, expected none")
+        log(f"path 12: {phases['lmrank_s']:.3f} s, launches {lmrank_launches}")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3606,6 +3990,8 @@ def main() -> int:
     by_path["control_a"] = control_launches  # path 8 (a), in this process; (b) launches nothing
     by_path["serve_a"], by_path["serve_b"] = serve_a_launches, serve_b_launches  # path 9, in this process
     by_path["lm"] = lm_launches  # path 10: the models call none of the kernels
+    by_path["train"] = train_launches  # path 11: the same
+    by_path["lmrank"] = lmrank_launches  # path 12, in this process (each rank's own counts are checked as zero)
     report["segment_rf"]["control_a_before_after_restore"] = control_read["a"]["launches"]["segment_rf"]
     report["full_reorder"]["control_a_before_after_restore"] = control_read["a"]["launches"]["full_reorder"]
     for tag, read in outofcore_read.items():  # path 7: the same
@@ -3624,6 +4010,7 @@ def main() -> int:
     log(json.dumps({"serve": {"a": serve_a, "b": serve_b}}))
     log(json.dumps({"lm": lm_read}))
     log(json.dumps({"train": train_read}))
+    log(json.dumps({"lmrank": lmrank_read}))
     kernels = []
     for name in KERNELS:
         r = report[name]

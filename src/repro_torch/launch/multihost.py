@@ -270,7 +270,7 @@ class LeaseBoard:
 
 
 # ------------------------------------------------------- collectives, transport
-_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
 
 
 def _wire(group: GraphGroup) -> torch.device:
@@ -280,13 +280,14 @@ def _wire(group: GraphGroup) -> torch.device:
 
 
 def all_reduce(t: torch.Tensor, group: GraphGroup, op: str = "sum") -> torch.Tensor:
-    """``op`` ("sum" or "min") of ``t`` over every rank, as a new tensor on
-    ``t``'s device; ``t`` itself is untouched. A world of one returns ``t``."""
+    """``op`` ("sum", "min" or "max") of ``t`` over every rank of ``group``
+    (the world, or a grid's line), as a new tensor on ``t``'s device; ``t``
+    itself is untouched. A world of one returns ``t``."""
     if not group.distributed:
         return t
     buf = t.to(_wire(group), copy=True)
     with OT.span("transfer.all_reduce"):
-        dist.all_reduce(buf, op=_REDUCE_OPS[op])
+        dist.all_reduce(buf, op=_REDUCE_OPS[op], group=group.process_group)
     return buf.to(t.device)
 
 
@@ -298,7 +299,7 @@ def all_gather_rows(t: torch.Tensor, group: GraphGroup) -> torch.Tensor:
     buf = t.to(_wire(group)).contiguous()
     parts = [torch.empty_like(buf) for _ in range(group.size)]
     with OT.span("transfer.all_gather"):
-        dist.all_gather(parts, buf)
+        dist.all_gather(parts, buf, group=group.process_group)
     return torch.cat(parts).to(t.device)
 
 

@@ -221,7 +221,35 @@ def attention_block(
     k = rope(k, positions, cfg.rope_theta)
 
     new_cache = None
-    if cache is not None:
+    sp_out = None
+    dst = _dist.current() if cache is not None else None
+    if dst is not None and dst.seq_axes:
+        # This rank holds a slice of the cache's sequence axis.
+        ck, cv, pos = cache["k"], cache["v"], cache["pos"]
+        s_loc = ck.shape[2]
+        total = s_loc * dst.seq_ranks
+        if pos + s > total:
+            raise ValueError(f"the cache holds {total} positions; writing {s} at {pos} overruns it")
+        if dst.sp_decode and s == 1:
+            # Sequence-parallel decode: the owner writes, every rank attends
+            # over its slice, the partials merge by log-sum-exp.
+            _dist.sp_cache_update(dst, ck, k, pos)
+            _dist.sp_cache_update(dst, cv, v, pos)
+            sp_out = _dist.sp_decode_attention(
+                dst, q, ck, cv, pos, window=window, softcap=cfg.attn_softcap, scale=cfg.head_dim**-0.5,
+            )
+        elif pos == 0:
+            # Prefill: attend over the prompt's own K/V; keep this rank's slice.
+            lo = dst.seq_start(s_loc)
+            n = max(0, min(s - lo, s_loc))
+            ck[:, :, :n] = k[:, :, lo : lo + n].to(ck.dtype)
+            cv[:, :, :n] = v[:, :, lo : lo + n].to(cv.dtype)
+            kv_len = s if kv_len is None else kv_len
+        else:
+            raise ValueError(f"a sequence-sharded cache takes a prefill from position 0 or, with sp_decode, one "
+                             f"token a step; got {s} tokens at {pos}")
+        new_cache = {"k": ck, "v": cv}
+    elif cache is not None:
         ck, cv, pos = cache["k"], cache["v"], cache["pos"]
         if pos + s > ck.shape[2]:
             raise ValueError(f"the cache holds {ck.shape[2]} positions; writing {s} at {pos} overruns it")
@@ -231,11 +259,14 @@ def attention_block(
         k, v = ck, cv
         kv_len = pos + s if kv_len is None else kv_len
 
-    out = mea_attention(
-        q, k, v,
-        causal=causal, window=window, softcap=cfg.attn_softcap,
-        q_offset=q_offset, kv_len=kv_len,
-    )
+    if sp_out is not None:
+        out = sp_out
+    else:
+        out = mea_attention(
+            q, k, v,
+            causal=causal, window=window, softcap=cfg.attn_softcap,
+            q_offset=q_offset, kv_len=kv_len,
+        )
     out = out.transpose(1, 2)  # (B, S, Hq, hd)
     out = _einsum("bshk,hkd->bsd", out, p["wo"])
     return out, new_cache
@@ -302,7 +333,7 @@ def moe_route(x, router, cfg):
 def moe_block(p, x, cfg):
     """Top-k routed experts with DP-local capacity dispatch + shared experts.
 
-    Tokens are grouped as (DP, T_loc, …); on one card DP is 1. Each expert's
+    Tokens are grouped as (DP, T_loc, …) with DP 1: a rank's tokens are one group. Each expert's
     buffer holds ``cap`` tokens plus a trash slot; the buffers are gathered
     from the tokens, run through the experts' SwiGLU, and each (token, k)
     entry's output gathered back and weighted by its gate (0 if dropped).
@@ -311,9 +342,11 @@ def moe_block(p, x, cfg):
     e, k = cfg.num_experts, cfg.experts_per_token
     ea = cfg.experts_alloc
     t = b * s
-    dp = _dist.dp_size()
-    if t % max(dp, 1):
-        dp = 1
+    # The reference splits the global tokens into dp_size() groups of
+    # contiguous batch rows. Under a distribution this rank holds exactly one
+    # such group (Distribution.batch_rows), and without one there is one
+    # group: either way the tokens here route as one group.
+    dp = 1
     tl = t // dp
     dev = x.device
 

@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..compat import resolve_device
+from . import dist as _dist
 from . import layers
 from .config import ModelConfig
 
@@ -261,27 +262,50 @@ def params_to_numpy(model: CausalLM) -> dict:
 
 
 # ------------------------------------------------------------------ caches
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32, device=None) -> dict:
-    """The reference's cache: layer-stacked tensors and ``"pos"``, here a
-    Python int. The forward functions update it in place."""
-    dev = resolve_device(device)
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32) -> dict:
+    """The reference's ``init_cache(cfg, batch, max_len, dtype)`` as
+    ``(shape, dtype)`` leaves (``"pos"`` a 0-d int32), allocating nothing."""
     l = cfg.num_layers
-    cache: dict = {"pos": 0}
+    shapes: dict = {"pos": ((), torch.int32)}
     fam = cfg.family
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
-
     if fam in ("dense", "vlm", "audio", "moe", "hybrid", "encdec"):
-        cache["k"] = zeros(l, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-        cache["v"] = torch.zeros_like(cache["k"])
+        shapes["k"] = shapes["v"] = ((l, batch, cfg.num_kv_heads, max_len, cfg.head_dim), dtype)
     if fam == "encdec":
-        cache["cross_k"] = zeros(l, batch, cfg.num_kv_heads, cfg.encoder_seq, cfg.head_dim)
-        cache["cross_v"] = torch.zeros_like(cache["cross_k"])
+        shapes["cross_k"] = shapes["cross_v"] = ((l, batch, cfg.num_kv_heads, cfg.encoder_seq, cfg.head_dim), dtype)
     if fam in ("ssm", "hybrid"):
         di, n, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-        cache["ssm_state"] = zeros(l, batch, h, cfg.ssm_head_dim, n)
-        cache["conv_state"] = zeros(l, batch, cfg.ssm_conv - 1, di + 2 * n)
+        shapes["ssm_state"] = ((l, batch, h, cfg.ssm_head_dim, n), dtype)
+        shapes["conv_state"] = ((l, batch, cfg.ssm_conv - 1, di + 2 * n), dtype)
+    return shapes
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=torch.float32, device=None, dist=None) -> dict:
+    """The reference's cache: layer-stacked tensors and ``"pos"``, here a
+    Python int. The forward functions update it in place.
+
+    ``batch`` and ``max_len`` are global. Under ``dist`` (default: the live
+    distribution, ``models.dist.current()``) the cache is this rank's share,
+    as the reference's ``cache_spec`` lays it out: the rows of its batch index
+    (``Distribution.batch_rows``), and of K/V the slice of its sequence index
+    (``seq_slice``). The SSM states and encdec's cross K/V keep every position
+    of the rank's rows."""
+    dev = resolve_device(device)
+    dist = _dist.current() if dist is None else dist
+    rows = seq = None
+    if dist is not None:
+        lo, hi = dist.batch_rows(batch) if dist.batch_axes else (0, batch)
+        rows = hi - lo
+        lo, hi = dist.seq_slice(max_len) if dist.seq_axes else (0, max_len)
+        seq = hi - lo
+    cache: dict = {"pos": 0}
+    for key, (shape, dt) in cache_shapes(cfg, batch, max_len, dtype).items():
+        if key == "pos":
+            continue
+        if rows is not None:
+            shape = (shape[0], rows, *shape[2:])
+            if key in ("k", "v"):
+                shape = (*shape[:3], seq, shape[4])
+        cache[key] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
@@ -470,7 +494,10 @@ def forward_train(params, cfg: ModelConfig, batch: dict, *, remat: bool = True):
 
 def forward_prefill(params, cfg: ModelConfig, batch: dict, cache: dict):
     """Run the prompt through the model, filling ``cache`` in place from
-    position 0. Returns (last-position logits (B, V) f32, the cache)."""
+    position 0. Returns (last-position logits (B, V) f32, the cache). Under a
+    distribution the batch is this rank's rows and the cache its share
+    (``init_cache``): each rank attends over the whole prompt of its rows and
+    keeps its slice of the K/V."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = _embed(cfg, params, tokens, batch)
@@ -486,7 +513,9 @@ def forward_prefill(params, cfg: ModelConfig, batch: dict, cache: dict):
 
 def forward_decode(params, cfg: ModelConfig, token, cache: dict, batch_extras: Optional[dict] = None):
     """One decode step. token: (B, 1) int. Updates ``cache`` in place.
-    Returns (logits (B, V) f32, the cache)."""
+    Returns (logits (B, V) f32, the cache). Under a distribution with
+    ``sp_decode`` the token is this rank's rows and attention runs over the
+    ranks' cache slices (``models.dist.sp_decode_attention``)."""
     x = params["embed"][token]
     # encdec: cross K/V comes from the cache (filled at prefill) — the
     # encoder is NOT re-run per decode step.

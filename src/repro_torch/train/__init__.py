@@ -1,3 +1,4 @@
-"""Training on one card: AdamW (``optimizer``) and the train, prefill and
-decode steps (``steps``). Gradient compression comes with the LM over ranks."""
-from . import optimizer, steps  # noqa: F401
+"""Training: AdamW (``optimizer``), the train, prefill and decode steps
+(``steps``) and the int8 error-feedback gradient all-reduce over data ranks
+(``compression``)."""
+from . import compression, optimizer, steps  # noqa: F401

@@ -7,6 +7,8 @@ Inputs are made with numpy and rounded to bf16 the same way in both
 frameworks. Tolerances are tests/test_kernels.py's: 2e-5 in f32 (the sums run
 in another order than XLA's), 2e-2 where the output is bf16.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

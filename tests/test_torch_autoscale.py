@@ -6,6 +6,8 @@ decisions (and hold for the same reasons) on the same registry signals; and a
 policy-driven rescale of a port ``StreamingEngine(device="cpu")`` under both
 controllers, bit-identical to ``pack_slots`` after every decision. Exact.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import re
 
 import numpy as np

@@ -1,6 +1,8 @@
 """The kernels' build cache: a library's path is keyed by its source, by
 every header in ``csrc/`` and by the compiler flags, so an edit to any of
 them builds a new library. Nothing here needs ``nvcc`` or a card."""
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import shutil
 
 import pytest

@@ -19,6 +19,8 @@ package's, on the same inputs.
 
 Exact everywhere.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import json
 import zipfile
 from collections import namedtuple

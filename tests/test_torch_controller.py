@@ -17,6 +17,8 @@
 Exact everywhere; the controllers' timing fields are zeroed by
 ``drop_timings`` (wall clocks differ between two runs).
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import json
 
 import numpy as np

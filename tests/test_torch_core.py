@@ -1,6 +1,8 @@
 """The port's host core (numpy copies) is byte-equal to the JAX package's:
 GEO permutations, CEP bounds / id2p / scale plans, RF and mirrors, baselines,
 theory, and the partition placement math."""
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import numpy as np
 import pytest
 

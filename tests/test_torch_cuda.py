@@ -11,6 +11,8 @@ no JAX, so it runs where only PyTorch is installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import json
 import pathlib
 
@@ -1117,3 +1119,56 @@ def test_lm_training_entry_points_default_to_cuda(cuda, tmp_path):
     model, state, m = LS.make_train_step(cfg, LO.OptConfig())(model, state, batch)
     assert m["loss"].device.type == "cuda" and state["m"]["embed"].dtype == torch.float32
     assert model["embed"].dtype == torch.bfloat16 and torch.isfinite(m["loss"])
+
+
+# ------------------------------------------------------- the LM over ranks
+def test_sp_cache_update_in_place_on_cuda(cuda):
+    """Rank 1 of a (1, 2) grid holds positions [16, 32): it writes a token it
+    owns in place on the card, as the CPU does, and leaves one it does not."""
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import dist as D
+
+    group = MM.GraphGroup(size=2, rank=1, device=cuda, backend="gloo", processes=(0, 1))
+    dist = D.Distribution(mesh=MM.RankGrid(("data", "model"), (1, 2), group))
+    gen = torch.Generator().manual_seed(0)
+    for pos, owned in ((20, True), (31, True), (3, False), (15, False)):
+        host = torch.randn(2, 3, 16, 8, generator=gen)
+        new = torch.randn(2, 3, 1, 8, generator=gen)
+        cache = host.to(cuda)
+        ptr = cache.data_ptr()
+        got = D.sp_cache_update(dist, cache, new.to(cuda), pos)
+        want = D.sp_cache_update(dist, host.clone(), new, pos)
+        assert got is cache and cache.data_ptr() == ptr
+        assert torch.equal(cache.cpu(), want)
+        assert torch.equal(cache.cpu(), host) != owned
+
+
+def test_sp_decode_attention_on_one_rank_on_cuda_equals_cpu(cuda):
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import dist as D
+
+    dist = D.Distribution(mesh=MM.make_test_mesh(1, 1))
+    gen = torch.Generator().manual_seed(1)
+    q, ck, cv = (torch.randn(shape, generator=gen) for shape in ((2, 8, 1, 64), (2, 2, 300, 64), (2, 2, 300, 64)))
+    for kw in (dict(window=None, softcap=None), dict(window=64, softcap=20.0)):
+        want = D.sp_decode_attention(dist, q, ck, cv, 250, scale=0.125, **kw)
+        got = D.sp_decode_attention(dist, q.to(cuda), ck.to(cuda), cv.to(cuda), 250, scale=0.125, **kw)
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_quantize_and_compressed_allreduce_on_cuda_equal_cpu(cuda):
+    """int8 quantization on the card equals the CPU's bit for bit; so does
+    the compressed all-reduce of a world of one (reduced value and error)."""
+    from repro_torch.launch import mesh as MM
+    from repro_torch.train import compression as C
+
+    gen = torch.Generator().manual_seed(2)
+    for shape in ((16, 4), (1_000_003,), (3, 5, 7)):
+        g = torch.randn(shape, generator=gen) * 3.0
+        e = 0.01 * torch.randn(shape, generator=gen)
+        q, scale = C.quantize(g)
+        qc, sc = C.quantize(g.to(cuda))
+        assert qc.dtype == torch.int8 and torch.equal(qc.cpu(), q) and torch.equal(sc.cpu(), scale)
+        red, err = C.compressed_allreduce({"g": g}, {"g": e}, MM.GraphGroup())
+        redc, errc = C.compressed_allreduce({"g": g.to(cuda)}, {"g": e.to(cuda)}, MM.GraphGroup(device=cuda))
+        assert torch.equal(redc["g"].cpu(), red["g"]) and torch.equal(errc["g"].cpu(), err["g"])

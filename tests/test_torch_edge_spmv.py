@@ -8,6 +8,8 @@ Tolerances: the f32 sums run in another order than XLA's (the plain version
 uses ``index_add_``, the JAX kernel one-hot matmuls), so results agree to
 1e-5 per window and 1e-4 over whole graphs, as tests/test_kernels.py allows.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -4,6 +4,8 @@ packs byte-equal with equal quality metrics, SSSP / WCC exact, PageRank close.
 PageRank tolerance: XLA's and torch's scatter-adds sum the f32 contributions
 in different orders, so the ranks agree to rtol=1e-5, atol=1e-7, not bitwise.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import numpy as np
 import pytest
 import torch

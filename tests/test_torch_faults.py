@@ -27,6 +27,8 @@ package: the tests of ``tests/test_faults.py`` on the port's ``LeaseBoard``,
 
 Exact everywhere.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import os
 import sys
 

@@ -1,6 +1,8 @@
 """The port stands alone: importing every repro_torch module (and chip_smoke.py)
 pulls in neither jax nor the JAX package, no line of the port or its scripts
 imports either, and the kernel path has no fallback handlers."""
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import json
 import os
 import pathlib
@@ -50,6 +52,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.configs.gemma2_9b", "repro_torch.configs.whisper_small", "repro_torch.configs.mamba2_1_3b",
         "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.granite_moe_3b", "repro_torch.configs.hymba_1_5b",
         "repro_torch.train", "repro_torch.train.optimizer", "repro_torch.train.steps", "repro_torch.launch.train",
+        "repro_torch.train.compression", "repro_torch.launch.specs", "repro_torch.launch.roofline",
+        "repro_torch.launch.dryrun",
     } <= set(result["modules"])
 
 
@@ -98,6 +102,7 @@ def test_no_exception_handler_on_the_kernel_path():
     files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
     files += sorted((PORT / "models").glob("*.py")) + [ROOT / "tests" / "torch_lm_harness.py"]
     files += sorted((PORT / "train").glob("*.py")) + [PORT / "launch" / "train.py"]
+    files += [PORT / "launch" / n for n in ("mesh.py", "sharding.py", "specs.py", "roofline.py", "dryrun.py")]
     hits = [f"{f}:{i}" for f in files for i, line in enumerate(f.read_text().splitlines(), 1)
             if re.match(r"^\s*(try|except)\b", line)]
     assert hits == []

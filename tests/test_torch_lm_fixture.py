@@ -7,6 +7,8 @@ parity tests' tolerance.
 After a change to the harness's set-up or to the reference's outputs,
 rewrite it with ``PYTHONPATH=src JAX_PLATFORMS=cpu python tools/lm_fixture.py``.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import importlib.util
 import pathlib
 

@@ -9,6 +9,8 @@ port by ``params_from_numpy``, and ``forward_train``, ``forward_prefill``
 package's at rtol 1e-4, atol 1e-5, in float32 on the CPU. The JAX side runs
 once per architecture (a module-scoped fixture).
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 import importlib.util
 import pathlib

@@ -10,6 +10,8 @@ decode step against the float32 prefill) is at most ``RATIO`` (1.25) times
 the reference's own. The tool prints the same at gemma3-4b's published
 widths.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import importlib.util
 import pathlib
 

@@ -7,6 +7,8 @@ of every token and the set of (token, k) entries kept under the capacity. A
 near-tie in routing would show as a failure here; it is reported, never
 re-seeded away.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 
 import jax
@@ -295,12 +297,27 @@ def test_moe_top_k_takes_the_lower_index_on_ties():
 
 
 def test_dp_size_is_one_and_distributions_wait():
+    """Without a distribution dp_size is 1; ``use_distribution`` makes one
+    live for its block only (an exception in the block included), and
+    dp_size is then the product of its batch axes, as the reference's."""
+    from repro.models import dist as J_dist
+    from repro_torch.launch import mesh as MM
+
     assert dist.dp_size() == 1 and dist.current() is None
     with dist.use_distribution(None):
         assert dist.current() is None
-    with pytest.raises(NotImplementedError, match="A7"):
-        with dist.use_distribution(object()):
-            pass
+    grid = MM.make_production_mesh(multi_pod=True)
+    for batch_axes, want in ((("pod", "data"), 32), (("data",), 16), ((), 1)):
+        d = dist.Distribution(mesh=grid, batch_axes=batch_axes)
+        with pytest.raises(RuntimeError, match="inside"):
+            with dist.use_distribution(d):
+                assert dist.current() is d and dist.dp_size() == want
+                raise RuntimeError("inside")
+        assert dist.current() is None and dist.dp_size() == 1
+    ref, port = J_dist.Distribution(mesh=None), dist.Distribution(mesh=grid)
+    fields = ("batch_axes", "seq_axes", "sp_decode", "tp_axis")
+    assert [getattr(port, f) for f in fields] == [getattr(ref, f) for f in fields]
+    assert (port.batch_spec, port.seq_spec, port.tp_size, d.batch_spec) == (("data",), ("model",), 16, None)
 
 
 # ----------------------------------------------------------------------- SSD

@@ -11,6 +11,8 @@ apps, ``cross_process_plan_edges``) and plan arithmetic. Every group and every
 wait has its own timeout, so a fault fails within about two minutes instead
 of hanging the suite.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 import json
 import os

@@ -7,6 +7,8 @@ launcher's. The port reads ``VmHWM`` of ``/proc/self/status`` (the peak of
 this process's own address space), or a running maximum of ``VmRSS`` where
 the kernel reports no ``VmHWM``, and ``ru_maxrss`` only without ``/proc``.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import os
 import pathlib
 import subprocess

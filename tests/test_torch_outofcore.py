@@ -16,6 +16,8 @@
 
 Tolerance: exact everywhere; the RF gates are the reference's 1.10.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 import json
 import pathlib

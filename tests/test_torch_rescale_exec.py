@@ -1,6 +1,8 @@
 """The port's ElasticRescaler on packs handed over from the JAX package: the
 executed k_old → k_new result is byte-equal to the JAX package's executed
 result and to its fresh pack at k_new, with equal RescaleStats."""
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 
 import numpy as np

@@ -1,6 +1,8 @@
 """segment_rf: the plain version equals the JAX Pallas kernel (interpret mode)
 and the numpy oracle; the wrapper dispatches by device without fallback. The
 CUDA kernel itself is held against the plain version in test_torch_cuda.py."""
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,8 @@
 * A 2 × 2 gloo cluster of ``tests/torch_serve_harness.py`` takes the same k
   path, records and probe answers as one rank.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 import json
 import sys

@@ -15,6 +15,8 @@
 Tolerance: exact everywhere, except PageRank on the stream pack (rtol 1e-5,
 atol 1e-7: f32 scatter-adds in another order, as in tests/test_torch_engine.py).
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import collections
 import dataclasses
 import logging

@@ -24,6 +24,8 @@ replay, the ladder and rebuild logs equal, the rescale counts equal to the
 replay's gather map, and PageRank within rtol 1e-5 of the JAX replicated
 engine. Every group and every wait has a timeout.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 import json
 import os

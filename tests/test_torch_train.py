@@ -21,6 +21,8 @@ against the JAX package's on the CPU, and its remat sites.
   loss and shrink with ``remat`` in the layer stack; under
   ``torch.inference_mode()`` no checkpoint runs.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import dataclasses
 
 import jax

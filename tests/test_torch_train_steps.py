@@ -18,6 +18,8 @@ After a change to the harness's training set-up or to the reference's
 steps, rewrite the fixture with
 ``PYTHONPATH=src JAX_PLATFORMS=cpu python tools/train_fixture.py``.
 """
+import torch_threads  # noqa: F401  (first: the thread count of this process)
+
 import importlib.util
 import pathlib
 
