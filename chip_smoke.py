@@ -191,8 +191,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 13. the rungs' device programs alone against their host mirrors, with the
    counts set to 0 again: the span order and selection on the worst span of
    path 3's engine after path 9 (a)'s rescale; the greedy kernel on path 4's
-   slots (beside its plain version's step loop on the card) and on an
-   RMAT-16 graph's slots;
+   slots (one CTA, beside its plain version's step loop on the card) and on
+   an RMAT-16 graph's slots (a thread-block cluster), each with its cluster
+   size and state branch beside its time a step;
 14. path 5, the multi-rank main path on the slice-1 graph and GEO order (saved
    once under ``build/multirank/`` for the ranks to load): (a) g = 4 ranks as
    2 processes × 2 over gloo, every rank on the one card (NCCL refuses two
@@ -245,7 +246,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    it, each rank's greedy launches equal to its blocks inside the int32
    bound, the re-checked RF equal to the oracle's, the round trip and the
    k = 12 sequence, and the ranks' stream phases equal and within their
-   resident bound; each chunk's greedy time, steps and state branch, the
+   resident bound; each chunk's greedy time, steps, cluster size and state
+   branch, the
    bytes of the rescales, peak RSS by rank and the RF ratio to host
    ``geo_order`` are readings; the oracle orders its chunks, and takes the
    ``geo_order`` reading, in a pool of 4 spawned processes. ``--cards 4``
@@ -600,9 +602,18 @@ def greedy_tap(FRK, tapped: list):
     return kernel, tap
 
 
+def greedy_branch(FRK, nv: int, device=None) -> dict:
+    """The greedy kernel's launch for ``nv`` vertices (``FRK.greedy_plan``):
+    its CTAs and where the per-vertex state lies ("one CTA", "cluster",
+    its distributed shared memory, or "global")."""
+    cluster, global_bytes = FRK.greedy_plan(nv, device)
+    return dict(cluster=cluster, branch="one CTA" if cluster == 1 else "global" if global_bytes else "cluster")
+
+
 def greedy_against_mirror(FRK, rec: dict) -> dict:
     """One tapped greedy launch held against the host mirror on its inputs:
-    the permutation its keys sort to and its step count."""
+    the permutation its keys sort to and its step count, and the launch's
+    cluster size and state branch."""
     u, v, valid, permpos = (rec[k].cpu().numpy() for k in ("u", "v", "valid", "permpos"))
     host, steps = FRK._full_order_host(u.astype(np.int64), v.astype(np.int64), valid, rec["nv"], *rec["params"],
                                        permpos.astype(np.int64))
@@ -610,6 +621,7 @@ def greedy_against_mirror(FRK, rec: dict) -> dict:
     perm = np.lexsort((np.arange(len(u)), k[3], k[2], k[1], k[0]))
     return dict(slots=int(len(u)), live=int(valid.sum()), steps=int(rec["steps"][0]), mirror_steps=int(steps),
                 walked=int(rec["work"][0]), fallbacks=int(rec["work"][1]),
+                **greedy_branch(FRK, rec["nv"], rec["u"].device),
                 exact=bool(np.array_equal(perm, host)) and int(rec["steps"][0]) == int(steps))
 
 
@@ -992,7 +1004,8 @@ def greedy_times(FRK, dev, u, v, valid, nv: int, k_min: int, k_max: int, what: s
     bytes_ = steps * 10 * nv + walked * 13 + 16 * n
     bytes_ms = bytes_ / H100_BYTES_PER_S * 1e3
     ops_ms = 4 * steps * nv / H100_FP32_OPS_PER_S * 1e3  # the argmin's test, priority, pack and min a vertex
-    r = dict(slots=int(u.shape[0]), live=n, vertices=nv, k=[k_min, k_max], steps=steps, ms=ms,
+    r = dict(slots=int(u.shape[0]), live=n, vertices=nv, k=[k_min, k_max], **greedy_branch(FRK, nv, dev), steps=steps,
+             ms=ms,
              us_per_step=ms / steps * 1e3, enqueue_ms=enqueue_ms, order_ms=order_ms, order_enqueue_ms=order_enqueue_ms,
              mirror_ms=mirror_ms, walked=walked, fallbacks=fallbacks, bytes=bytes_,
              bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
@@ -1000,7 +1013,8 @@ def greedy_times(FRK, dev, u, v, valid, nv: int, k_min: int, k_max: int, what: s
         got, r["plain_ms"], r["plain_enqueue_ms"] = timed(
             lambda: FRK.full_order_device_torch(ut, vt, vd, nv, alpha, beta, delta, pt, steps=steps))
         check(np.array_equal(got.cpu().numpy(), host_perm), f"the plain greedy differs from its mirror at {what}")
-    log(f"greedy kernel at {what} ({r['slots']} slots, {n} live, {nv} vertices, {steps} steps): {ms:.3f} ms on the "
+    log(f"greedy kernel at {what} ({r['slots']} slots, {n} live, {nv} vertices, {steps} steps; {r['branch']}, "
+        f"{r['cluster']} CTA{'s' if r['cluster'] > 1 else ''}): {ms:.3f} ms on the "
         f"card ({r['us_per_step']:.2f} us a step), {enqueue_ms:.3f} ms to enqueue; full_order_device {order_ms:.3f} "
         f"ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {bytes_} B, {walked} incidence entries walked); host "
         f"mirror {mirror_ms:.3f} ms"
@@ -1538,7 +1552,7 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
         for run in runs:
             ms, steps = run["events"][0].elapsed_time(run["events"][1]), int(run["steps"][0])
             b.update(ms=ms, steps=steps, us_per_step=ms / steps * 1e3, unique=run["unique"],
-                     branch="global" if FRK._kernel()[1](run["nv"]) > 0 else "shared")
+                     **greedy_branch(FRK, run["nv"], dev))
     meta = dict(rank=r, device=str(dev), backend=group.backend, splits=[int(x) for x in splits], chunk_sizes=sizes,
                 num_edges=int(data.num_edges), parts=data.local_partitions(), k_pad_up=up.k_pad, wall=wall,
                 peak_rss_mb=rss, rss_field=OM.read_peak_rss()[0], blocks=blocks, rescales=rescales, stream=stream,
@@ -1550,7 +1564,7 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
     (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
     print(f"rank {r}: chunks {[b['chunk'] for b in blocks]}, greedy kernel launched {meta['greedy_launches']} times "
           + ", ".join(f"chunk {b['chunk']} {b['ms']:.3f} ms ({b['steps']} steps, {b['us_per_step']:.2f} us a step, "
-                      f"{b['vertices']} vertices, state in {b['branch']} memory)" for b in blocks if "ms" in b)
+                      f"{b['vertices']} vertices, {b['branch']}, {b['cluster']} CTAs)" for b in blocks if "ms" in b)
           + f"; segment_rf {meta['segment_rf_launches']} times; rescales "
           + ", ".join(f"{x['k_old']}->{x['k_new']} {x['ms']:.3f} ms, sent {x['sent']:.0f} B, received "
                       f"{x['received']:.0f} B" for x in rescales)
@@ -1707,8 +1721,9 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
                peak_rss_mb_by_rank=[max(m["peak_rss_mb"].values()) for _, m in ranks], rss_field=first["rss_field"],
                greedy_launches=[m["greedy_launches"] for _, m in ranks],
                segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
-               chunks=[{k: b[k] for k in ("chunk", "rows", "unique", "vertices", "steps", "ms", "us_per_step", "branch")
-                        if k in b} | {"rank": i} for i, (_, m) in enumerate(ranks) for b in m["blocks"]],
+               chunks=[{k: b[k] for k in ("chunk", "rows", "unique", "vertices", "steps", "ms", "us_per_step", "branch",
+                                          "cluster") if k in b} | {"rank": i}
+                       for i, (_, m) in enumerate(ranks) for b in m["blocks"]],
                rescales=[dict(k_old=x["k_old"], k_new=x["k_new"], ms_by_rank=[m["rescales"][j]["ms"] for _, m in ranks],
                               sent_by_rank=[m["rescales"][j]["sent"] for _, m in ranks],
                               received_by_rank=[m["rescales"][j]["received"] for _, m in ranks], rf=x["rf"])
@@ -3959,7 +3974,8 @@ def main() -> int:
     report["full_reorder"].update(
         shape=[greedy["slots"], greedy["vertices"]], ms=greedy["ms"], plain_ms=greedy["plain_ms"],
         bound_ms=greedy["bound_ms"], bound_by=greedy["bound_by"], library_ms=None,
-        **{key: greedy[key] for key in ("steps", "us_per_step", "enqueue_ms", "order_ms", "mirror_ms", "walked")},
+        **{key: greedy[key] for key in ("cluster", "branch", "steps", "us_per_step", "enqueue_ms", "order_ms",
+                                        "mirror_ms", "walked")},
         wide=stream_twins["greedy_wide"])
     rs = report["segment_rf"]
     log(f"segment_rf at {rs['shape']}: {rs['ms']:.4f} ms on the card, {rs['wrapper_ms']:.4f} ms a wrapper call; "
@@ -4000,8 +4016,8 @@ def main() -> int:
         report["segment_rf"][f"outofcore_{tag}_by_rank"] = read["segment_rf_launches"]
         report["full_reorder"][f"outofcore_{tag}_by_rank"] = read["greedy_launches"]
         report["full_reorder"][f"outofcore_{tag}_chunks"] = [
-            {k: c[k] for k in ("chunk", "vertices", "steps", "ms", "us_per_step", "branch")} for c in read["chunks"]
-            if "ms" in c]
+            {k: c[k] for k in ("chunk", "vertices", "steps", "ms", "us_per_step", "branch", "cluster")}
+            for c in read["chunks"] if "ms" in c]
     log(json.dumps({"stream": {**stream_read, **stream_twins}, "rungs": rungs_read}))
     log(json.dumps({"multirank": multirank_read}))
     log(json.dumps({"streamrank": streamrank_read}))

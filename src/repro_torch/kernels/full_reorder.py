@@ -26,7 +26,10 @@ the device. Here a CUDA tensor takes the hand-written kernel
 (``incidence_device``), one launch runs every step on the card, evaluating
 the twin's condition ``(t < nv) & (i < e_live)`` itself, and writes the
 four keys and its step count (``greedy_keys``); the 5-key sort finishes on
-the card. Nothing is read back. A CPU tensor takes the plain version
+the card. Nothing is read back. The kernel runs on one CTA for small
+graphs and on a thread-block cluster of up to 16 CTAs above that, the
+per-vertex state split over the cluster's shared memory (``greedy_plan``
+says which). A CPU tensor takes the plain version
 ``full_order_device_torch``, the step loop as torch ops, which enqueues
 exactly ``steps`` steps: the host mirror's step count (a step after every
 live edge is ordered changes no key, since every degree is 0 then).
@@ -68,6 +71,7 @@ __all__ = [
     "full_order_device",
     "full_order_device_torch",
     "greedy_keys",
+    "greedy_plan",
     "incidence_device",
     "launches",
     "full_objective_host",
@@ -79,7 +83,7 @@ __all__ = [
 
 _PAD = int(PAD_ID)  # int32 max — dead-slot sort key
 launches = 0  # launches of the greedy kernel since import (or a reset)
-_greedy_fns = None  # (greedy, state_bytes): the C entry points, their ctypes signatures set once
+_greedy_fns = None  # (greedy, plan): the C entry points, their ctypes signatures set once
 
 
 def greedy_fits_int32(num_edges: int, k_min: int, k_max: int, max_degree: int) -> bool:
@@ -368,18 +372,37 @@ def incidence_device(u, v, valid, num_vertices: int) -> tuple[torch.Tensor, torc
 
 
 def _kernel():
-    """``(greedy, state_bytes)`` of the built library, with their ctypes
+    """``(greedy, plan)`` of the built library, with their ctypes
     signatures set where it is first loaded."""
     global _greedy_fns
     if _greedy_fns is None:
         lib = _build.load("full_reorder")
-        greedy, state = lib.full_reorder_greedy, lib.full_reorder_state_bytes
+        greedy, plan = lib.full_reorder_greedy, lib.full_reorder_plan
         greedy.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         greedy.restype = ctypes.c_int
-        state.argtypes = [ctypes.c_int]
-        state.restype = ctypes.c_longlong
-        _greedy_fns = greedy, state
+        plan.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+        plan.restype = ctypes.c_int
+        _greedy_fns = greedy, plan
     return _greedy_fns
+
+
+def greedy_plan(num_vertices: int, device=None) -> tuple[int, int]:
+    """The greedy kernel's launch for |V| vertices on a CUDA device (the
+    current one by default): ``(cluster, global_bytes)``. ``cluster`` is the
+    CTAs it runs on: 1, one CTA with the per-vertex state in its shared
+    memory; 2–16, a thread-block cluster with the state split over the CTAs'
+    shared memory, or, where ``global_bytes`` > 0, over that much global
+    scratch. Raises with the CUDA error's string where the device cannot be
+    asked."""
+    nv = int(num_vertices)
+    if not 0 < nv < 2**31 - 32:
+        raise ValueError(f"greedy_plan takes 0 < |V| < 2**31 - 32, got {nv}")
+    _, plan = _kernel()
+    cluster, global_bytes = ctypes.c_int(0), ctypes.c_longlong(0)
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        err = plan(nv, ctypes.byref(cluster), ctypes.byref(global_bytes))
+    _build.check_launch("full_reorder", err)
+    return cluster.value, global_bytes.value
 
 
 def greedy_keys(u, v, valid, num_vertices: int, alpha: int, beta: int, delta: int, permpos):
@@ -390,8 +413,10 @@ def greedy_keys(u, v, valid, num_vertices: int, alpha: int, beta: int, delta: in
     the incidence entries its walks read and its fallback steps. ``u``/``v``
     int32 and ``valid`` bool ``(cap,)``, ``permpos`` int32 ``(|V|,)``, all
     contiguous and on one CUDA device; ``alpha``, ``beta``, ``delta`` ints.
-    One kernel launch, after the incidence list's torch ops; nothing is read
-    back."""
+    One kernel launch, after the incidence list's torch ops, on the CTAs
+    ``greedy_plan`` names; nothing is read back. A launch the card refuses
+    (a cluster it cannot hold: no silent fallback) raises with the CUDA
+    error's string."""
     global launches
     cap, nv = u.shape[0], int(num_vertices)
     for name, t, dtype, n in (("u", u, torch.int32, cap), ("v", v, torch.int32, cap),
@@ -405,11 +430,9 @@ def greedy_keys(u, v, valid, num_vertices: int, alpha: int, beta: int, delta: in
     if not 0 < nv < 2**31 - 32 or not 0 < cap < 2**30:
         raise ValueError(f"greedy_keys takes 0 < |V| < 2**31 - 32 and 0 < cap < 2**30, got {nv} and {cap}")
     dev = u.device
-    greedy, state_bytes = _kernel()
+    greedy, _ = _kernel()
+    _, need = greedy_plan(nv, dev)
     with torch.cuda.device(dev):
-        need = state_bytes(nv)
-        if need < 0:
-            _build.check_launch("full_reorder", int(-need))
         ptr, inc = incidence_device(u, v, valid, nv)
         done = (~valid).to(torch.uint8)
         keys = torch.full((4, cap), _PAD, dtype=torch.int32, device=dev)

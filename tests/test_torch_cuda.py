@@ -550,28 +550,56 @@ def _path4_slots():
     return g.src.astype(np.int64), g.dst.astype(np.int64), np.ones(g.num_edges, bool), g.num_vertices
 
 
-@pytest.mark.parametrize("stream", ["default", "side"])
-@pytest.mark.parametrize("case", ["drifted", "star", "ring", "path4"])
-def test_greedy_kernel_equals_mirror(cuda, case, stream):
-    """The greedy kernel, one launch, against the host mirror: the same
-    permutation and the mirror's step count, on the default stream and on a
-    side stream (where the async rebuild launches it)."""
+def _greedy_slots(case: str):
+    """(u, v, valid, nv, k_min, k_max) of a greedy case: the stream cases
+    and path 4's (one CTA); "rmat16", the smoke's RMAT-16 (65,536 vertices:
+    a cluster, its state in distributed shared memory); "past-one-cta",
+    30,000 vertices, just past one CTA's shared memory (a cluster of 2);
+    "wide-ids", 2,000 random edges over ids up to 400,000 (past 16 CTAs'
+    shared memory: the state in global memory); "hub", a vertex joined to
+    every 97th of 300,000, its spokes joined in a ring (a cluster of 14 or
+    more, the hub's list over every rank's share)."""
+    if case in ("drifted", "star", "ring"):
+        return (*_stream_slots(case), 4, 128)
+    if case in ("path4", "rmat16"):
+        g = rmat_graph(14 if case == "path4" else 16, 16, seed=0)
+        return (g.src.astype(np.int64), g.dst.astype(np.int64), np.ones(g.num_edges, bool), g.num_vertices,
+                4 if case == "path4" else 26, 32)
+    rng = np.random.default_rng(11)
+    if case == "past-one-cta":
+        nv = 30_000
+        e = rng.integers(0, nv, size=(60_000, 2))
+    elif case == "wide-ids":
+        nv = 400_000
+        e = rng.integers(0, nv, size=(2_000, 2))
+    else:
+        nv = 300_000
+        spokes = np.arange(1, 3_001, dtype=np.int64) * 97
+        e = np.concatenate([np.stack([np.zeros_like(spokes), spokes], axis=1),
+                            np.stack([spokes[:-1], spokes[1:]], axis=1)])
+    e = np.unique(np.sort(e[e[:, 0] != e[:, 1]], axis=1), axis=0)
+    return e[:, 0].astype(np.int64), e[:, 1].astype(np.int64), np.ones(e.shape[0], bool), nv, 4, 128
+
+
+GREEDY_CASES = ["drifted", "star", "ring", "path4", "rmat16", "past-one-cta", "wide-ids", "hub"]
+
+
+def _greedy_run(cuda, case, stream):
+    """``greedy_keys`` and ``full_order_device`` on one case, on the given
+    stream, against the host mirror; returns the launch plan."""
     from repro_torch.kernels import full_reorder as FRK
 
-    u, v, valid, nv = _path4_slots() if case == "path4" else _stream_slots(case)
-    k_max = 32 if case == "path4" else 128
+    u, v, valid, nv, k_min, k_max = _greedy_slots(case)
     n = int(valid.sum())
     deg = np.bincount(np.concatenate([u[valid], v[valid]]), minlength=1)
-    alpha, beta, delta = FRK.greedy_params(n, 4, k_max, int(deg.max()))
+    alpha, beta, delta = FRK.greedy_params(n, k_min, k_max, int(deg.max()))
     permpos = FRK.fallback_positions(nv)
     host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
     ut, vt = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (u, v))
     vd = torch.from_numpy(valid).to(cuda)
     pt = torch.from_numpy(permpos.astype(np.int32)).to(cuda)
-    side = torch.cuda.Stream() if stream == "side" else torch.cuda.current_stream()
-    side.wait_stream(torch.cuda.current_stream())
     before = FRK.launches
-    with torch.cuda.stream(side):
+    with torch.cuda.stream(stream):
         keys, kernel_steps, work = FRK.greedy_keys(ut, vt, vd, nv, alpha, beta, delta, pt)
         perm = FRK.full_order_device(ut, vt, vd, nv, alpha, beta, delta, pt, steps=0)  # steps: CPU only
     torch.cuda.synchronize()
@@ -581,6 +609,46 @@ def test_greedy_kernel_equals_mirror(cuda, case, stream):
     slot = np.arange(len(u))
     k = keys.cpu().numpy()
     np.testing.assert_array_equal(np.lexsort((slot, k[3], k[2], k[1], k[0])), host)
+    return FRK.greedy_plan(nv)
+
+
+@pytest.mark.parametrize("stream", ["default", "side"])
+@pytest.mark.parametrize("case", GREEDY_CASES)
+def test_greedy_kernel_equals_mirror(cuda, case, stream):
+    """The greedy kernel, one launch, against the host mirror: the same
+    permutation and the mirror's step count, on the default stream and on a
+    side stream (where the async rebuild launches it), in every branch the
+    kernel has: one CTA, a cluster with the state in its shared memory, and
+    a cluster of 16 with the state in global memory."""
+    side = torch.cuda.Stream() if stream == "side" else torch.cuda.current_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    cluster, global_bytes = _greedy_run(cuda, case, side)
+    want = {"rmat16": (4, 0), "past-one-cta": (2, 0)}.get(case)
+    if want is not None:
+        assert (cluster, global_bytes) == want
+    elif case == "wide-ids":
+        assert cluster == 16 and global_bytes > 0
+    elif case == "hub":
+        assert cluster >= 14 and global_bytes == 0
+    else:
+        assert (cluster, global_bytes) == (1, 0)
+
+
+def test_greedy_cluster_beside_a_long_scatter_on_another_stream(cuda):
+    """A cluster launch of the greedy while another stream runs a long queue
+    of scatters that fills the card: the cluster's CTAs are scheduled
+    together, so it finishes, and equals the mirror."""
+    busy = torch.cuda.Stream()
+    busy.wait_stream(torch.cuda.current_stream())
+    target = torch.zeros(1 << 20, device=cuda)
+    index = torch.randint(0, 1 << 20, (1 << 24,), device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    ones = torch.ones(1 << 24, device=cuda)
+    with torch.cuda.stream(busy):
+        for _ in range(40):
+            target.index_add_(0, index, ones)
+    side = torch.cuda.Stream()
+    cluster, _ = _greedy_run(cuda, "past-one-cta", side)
+    assert cluster > 1 and float(target.sum()) == 40 * (1 << 24)
 
 
 @pytest.mark.parametrize("bad", ["int64", "non-contiguous", "valid-uint8", "permpos-short"])
@@ -606,11 +674,30 @@ def test_greedy_wrapper_rejects_bad_input(cuda, bad):
     assert FRK.launches == before
 
 
+def test_greedy_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses raises with the CUDA error's string and
+    counts nothing: here the C entry point returns
+    cudaErrorInvalidClusterSize (912), what it returns where
+    cudaOccupancyMaxActiveClusters finds room for no cluster of the plan's
+    size. Nothing falls back to one CTA or to the plain version."""
+    from repro_torch.kernels import full_reorder as FRK
+
+    _, plan = FRK._kernel()
+    monkeypatch.setattr(FRK, "_greedy_fns", (lambda *args: 912, plan))
+    u, v, valid, nv = _stream_slots("ring")
+    ut, vt = (torch.from_numpy(a.astype(np.int32)).to(cuda) for a in (u, v))
+    pt = torch.from_numpy(FRK.fallback_positions(nv).astype(np.int32)).to(cuda)
+    before = FRK.launches
+    with pytest.raises(RuntimeError, match="cudaError 912"):
+        FRK.greedy_keys(ut, vt, torch.from_numpy(valid).to(cuda), nv, 3, 1, 2, pt)
+    assert FRK.launches == before
+
+
 def _oc_block(case: str) -> np.ndarray:
     """Out-of-core edge blocks over ids spread across 2**20: "small" (an
-    RMAT-12 graph, 2,967 compacted vertices: the greedy's state in
-    shared memory), "wide" (100,000 random edges among 30,000 vertices: its
-    state in the global scratch) and "duplicates" (the small block with
+    RMAT-12 graph, 2,967 compacted vertices: the greedy on one CTA), "wide"
+    (100,000 random edges among 30,000 vertices: on a cluster, its state in
+    the cluster's shared memory) and "duplicates" (the small block with
     repeated rows, shuffled)."""
     rng = np.random.default_rng(5)
     ids = rng.choice(1 << 20, size=30_000, replace=False)
@@ -630,7 +717,7 @@ def _oc_block(case: str) -> np.ndarray:
 def test_outofcore_chunk_on_the_greedy_kernel_equals_mirror(cuda, case):
     """``order_edge_block`` in the device chunk mode on the card: one launch
     of the greedy kernel a block, the permutation equal to the mirror mode's;
-    the compacted vertex count picks the kernel's state branch."""
+    the compacted vertex count picks the kernel's branch."""
     from repro_torch.core import hier_order as HO
     from repro_torch.kernels import full_reorder as FRK
 
@@ -641,8 +728,8 @@ def test_outofcore_chunk_on_the_greedy_kernel_equals_mirror(cuda, case):
     got = HO.order_edge_block(block, cfg, seed=7, device="cuda")
     assert FRK.launches == before + 1
     np.testing.assert_array_equal(got, HO.order_edge_block(block, HO.HierConfig(chunk_mode="mirror"), seed=7))
-    global_state = FRK._kernel()[1](nv) > 0
-    assert global_state == (case == "wide"), (nv, global_state)
+    cluster, global_bytes = FRK.greedy_plan(nv)  # "wide": a cluster, its state in shared memory
+    assert (cluster > 1, global_bytes) == (case == "wide", 0), (nv, cluster, global_bytes)
 
 
 def test_outofcore_device_mode_without_a_card_raises(monkeypatch):

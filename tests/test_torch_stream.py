@@ -351,18 +351,34 @@ def _emulation_inputs(case: str):
     return _greedy_features_case() if case == "features" else _twin_inputs(case)
 
 
-def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch):
+def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch, cluster=1, seed=0):
     """The per-step algorithm of ``csrc/full_reorder.cu``, step for step, in
-    numpy: the packed-key argmin (and the permpos fallback), the one-hop walk
-    over v_min's incidence entries, the two-hop walk flattened over prefix
-    sums of each frontier batch's list lengths (``batch`` vertices at a time;
-    the kernel's is its block size) with a binary search for the owning
-    vertex, the "both ends in the frontier: take from the u side" rule, and
-    the two-hop's slots collected before any write of M (the kernel's
-    barrier). Returns the keys, the step count and what the steps met."""
+    numpy, as a cluster of ``cluster`` CTAs runs it (1: the one-CTA kernel).
+    Vertex x belongs to rank x // per (per: the padded vertex count over the
+    ranks, rounded up to 32); each rank reduces its own range to a partial
+    packed-key argmin (and the permpos fallback), and the partials are
+    combined by minimum. The one-hop walks v_min's incidence entries; the
+    two-hop walks the frontier's lists flattened over prefix sums of each
+    batch's list lengths (``batch`` vertices at a time; the kernel's is its
+    block size) with a binary search for the owning vertex, takes a slot
+    with both ends in the frontier from its u side only, and reads M and
+    touched as the one-hop left them (the one-hop's own writes deferred to
+    the apply, so a frontier end counts as touched with M = i1); the apply
+    writes M as a maximum. Each walk's entries are dealt in stretches of 32
+    to the cluster's warps (``cluster`` × ``batch // 32`` of them), and the
+    threads' atomics and appends (D, the frontier bits and list, the two-hop
+    list, M) land in an order shuffled by a numpy generator seeded with
+    ``seed``: nothing may depend on it. Returns the keys, the step count and
+    what the steps met."""
     ptr, inc = (x.numpy().astype(np.int64) for x in FRK.incidence_device(_t(u), _t(v), torch.from_numpy(valid), nv))
     u, v = np.asarray(u, np.int64), np.asarray(v, np.int64)
     cap = len(u)
+    nvp = -(-nv // 32) * 32
+    per = -(-(-(-nvp // cluster)) // 32) * 32
+    ranges = [(r * per, max(r * per, min(nv, (r + 1) * per))) for r in range(cluster)]
+    warps = cluster * max(1, batch // 32)
+    rng = np.random.default_rng(seed)
+    none = np.uint64(2**64 - 1)
     d = np.diff(ptr).copy()
     m = np.zeros(nv, np.int64)
     touched = np.zeros(nv, bool)
@@ -371,23 +387,48 @@ def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch):
     done = ~valid.copy()
     keys = np.full((4, cap), 2**31 - 1, np.int64)
     e_live = ptr[nv] // 2
-    met = dict(ties=0, fallbacks=0, both_in_frontier=0, max_list=0)
+    met = dict(ties=0, fallbacks=0, both_in_frontier=0, max_list=0, won_by_other_rank=0, walk_ranks=0)
+
+    def partials(keep, key_of):
+        """Each rank's least key over its own range's vertices with ``keep``."""
+        out = []
+        for lo_v, hi_v in ranges:
+            xs = np.arange(lo_v, hi_v)
+            xs = xs[keep[lo_v:hi_v]]
+            out.append(key_of(xs).min() if xs.size else none)
+        return np.array(out, np.uint64)
+
+    def dealt(n):
+        """Entry indices 0..n-1 in the order the cluster's threads' atomics
+        land, and the ranks whose warps walk them (stretches of 32)."""
+        ranks = {(k // 32 % warps) // max(1, batch // 32) for k in range(0, n, 32)}
+        met["walk_ranks"] = max(met["walk_ranks"], len(ranks))
+        return rng.permutation(n)
+
+    def packed_pri(xs):
+        pri = alpha * d[xs] - beta * m[xs]
+        biased = ((pri.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint64)
+        return biased << np.uint64(32) | xs.astype(np.uint64)  # argmin's first index on ties
+
     t = i = 0
     while t < nv and i < e_live:
-        cand = np.flatnonzero((d > 0) & touched & ~selected)
-        if cand.size:
+        cand = (d > 0) & touched & ~selected
+        part = partials(cand, packed_pri)
+        best = part.min()
+        if best != none:
             pri = alpha * d[cand] - beta * m[cand]
-            biased = ((pri.astype(np.int64) & 0xFFFFFFFF) ^ 0x80000000).astype(np.uint64)
-            packed = biased << np.uint64(32) | cand.astype(np.uint64)  # argmin's first index on ties
-            vmin = int(cand[np.argmin(packed)])
             met["ties"] += int((pri == pri.min()).sum() > 1)
         else:
-            elig = np.flatnonzero((d > 0) & ~selected)
-            vmin = int(elig[np.argmin(permpos[elig] << 32 | elig)]) if elig.size else 0
+            part = partials((d > 0) & ~selected, lambda xs: permpos[xs].astype(np.uint64) << np.uint64(32)
+                            | xs.astype(np.uint64))
+            best = part.min()
             met["fallbacks"] += 1
+        met["won_by_other_rank"] += int(best != none and int(np.argmin(part)) > 0)
+        vmin = int(best & np.uint64(0xFFFFFFFF)) if best != none else 0
         frontier, n1 = [], 0
-        for j in range(ptr[vmin], ptr[vmin + 1]):  # one-hop
-            s = inc[j]
+        lo = ptr[vmin]
+        for k in dealt(ptr[vmin + 1] - lo):  # one-hop
+            s = inc[lo + k]
             if done[s]:
                 continue
             n1 += 1
@@ -399,19 +440,15 @@ def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch):
                 fr[other] = True
                 frontier.append(other)
         i1 = i + n1
-        m[frontier] = i1
-        touched[frontier] = True
-        touched[vmin] = selected[vmin] = True
-        d[vmin] = 0
         th = []
-        if n1 > 0:  # two-hop: collected first, written after the barrier
+        if n1 > 0:  # two-hop collect, as the one-hop left M and touched
             for f0 in range(0, len(frontier), batch):
                 fb = np.asarray(frontier[f0:f0 + batch])
                 lens = ptr[fb + 1] - ptr[fb]
                 met["max_list"] = max(met["max_list"], int(lens.max()))
                 foff = np.concatenate([[0], np.cumsum(lens)])
-                for w in range(foff[-1]):
-                    a = int(np.searchsorted(foff, w, side="right")) - 1  # s_foff[a] <= w < s_foff[a + 1]
+                for w in dealt(int(foff[-1])):
+                    a = int(np.searchsorted(foff, w, side="right")) - 1  # foff[a] <= w < foff[a + 1]
                     s = inc[ptr[fb[a]] + w - foff[a]]
                     if done[s]:
                         continue
@@ -421,16 +458,24 @@ def _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch):
                     if tu != fb[a]:
                         continue  # both ends in the frontier: taken from the u side
                     wo = v[s] if u_in else u[s]
-                    if touched[wo] and not selected[wo] and m[wo] > 0 and i1 - m[wo] <= delta and wo != vmin:
+                    w_in = u_in and fr[wo]
+                    mw = i1 if w_in else m[wo]
+                    if (w_in or touched[wo]) and not selected[wo] and mw > 0 and i1 - mw <= delta and wo != vmin:
                         th.append((s, tu, wo))
         i2 = i1 + len(th)
-        for s, tu, wo in th:
+        for k in rng.permutation(len(th)):  # apply: M only grows, so a maximum in any order
+            s, tu, wo = th[k]
             keys[:, s] = (t, 1, tu, wo)
             d[tu] -= 1
             d[wo] -= 1
-            m[tu] = m[wo] = i2
+            m[tu], m[wo] = max(m[tu], i2), max(m[wo], i2)
             done[s] = True
-        fr[frontier] = False
+        for f in rng.permutation(np.asarray(frontier, np.int64)):
+            m[f] = max(m[f], i1)
+            touched[f] = True
+            fr[f] = False
+        touched[vmin] = selected[vmin] = True
+        d[vmin] = 0
         i, t = i2, t + 1
     return keys, t, met
 
@@ -446,15 +491,31 @@ def test_incidence_device_equals_host_incidence(case):
     assert set(got_slots.numpy()[ptr[nv]:].tolist()) <= set(np.flatnonzero(~valid).tolist())  # dead slots last
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 16], ids=["cluster1", "cluster2", "cluster16"])
 @pytest.mark.parametrize("batch", [2, 1024], ids=["batch2", "batch1024"])
 @pytest.mark.parametrize("case", EMULATION_CASES)
-def test_kernel_emulation_equals_host_mirror(case, batch):
+def test_kernel_emulation_equals_host_mirror(case, batch, cluster):
+    """The kernel's algorithm on one CTA and split over clusters of 2 and 16
+    (no case's vertex count is a multiple of 16 × 32; at 16 most ranks own
+    nothing), its atomics in a shuffled order, against the JAX package's
+    host mirror (permutation) and the port's (step count)."""
     u, v, valid, nv = _emulation_inputs(case)
     alpha, beta, delta, permpos = _greedy_args(u, v, valid, nv)
-    host, steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
-    keys, kernel_steps, _ = _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch)
+    host = J_FRK.full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)
+    steps = FRK._full_order_host(u, v, valid, nv, alpha, beta, delta, permpos)[1]
+    keys, kernel_steps, _ = _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, batch, cluster,
+                                              seed=1000 * cluster + batch)
     assert kernel_steps == steps
     np.testing.assert_array_equal(np.lexsort((np.arange(len(u)), *keys[::-1])), host)
+
+
+def test_kernel_emulation_over_a_cluster_splits_the_step():
+    """Over a cluster of 16, the features case's steps take their minimum
+    from a rank other than 0 and deal the hub's list to more than one rank."""
+    u, v, valid, nv = _emulation_inputs("features")
+    alpha, beta, delta, permpos = _greedy_args(u, v, valid, nv)
+    met = _kernel_emulation(u, v, valid, nv, alpha, beta, delta, permpos, 32, 16)[2]
+    assert met["won_by_other_rank"] > 0 and met["walk_ranks"] > 1 and met["max_list"] >= 30
 
 
 def test_kernel_emulation_cases_cover_ties_fallbacks_hubs_and_shared_frontier_slots():
