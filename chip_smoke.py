@@ -12,9 +12,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    (the RMAT graph at ``--scale``, then ``geo_order`` on the host, 100-190 s
    at scale 20), which runs while phases 3-9 and paths 6 (b) and 8 (b) run
    here; the parent waits for it before slice 1;
-3. build the five CUDA kernels from ``src/repro_torch/kernels/csrc``
+3. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``,
-   ``full_reorder``, the full rung's greedy),
+   ``full_reorder``, the full rung's greedy, ``rescale_migrate``, a
+   rescale's migration),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
    check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
    instantiation issues HGMMA;
@@ -23,11 +24,18 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``segment_rf`` exactly, at the main path's row shapes and at edge cases
    (rows not a multiple of 8, widths not a multiple of the tile, all-PAD
    rows, single-id rows, W = 1, a row wider than 65535 tiles);
-   ``edge_spmv`` at rtol/atol 1e-5 (atomics sum in a varying order) at the
-   JAX tests' shapes, C = 1, W_E = 1, all-padding rows, ids past W_V, a hub
-   row (one dst in every slot: one run across warps and blocks), alternating
-   dst, sorted dst at an odd W_E, and more chunks than the grid has blocks,
-   so that blocks stride over them;
+   ``edge_spmv`` (atomics sum in a varying order), kernel and plain version
+   each within the order-independent summation bound of the float64 sum
+   (``within_summation_bound``), at the JAX tests' shapes, C = 1, W_E = 1,
+   all-padding rows, ids past W_V, a hub row (one dst in every slot: one run
+   across warps and blocks), alternating dst, sorted dst at an odd W_E, and
+   more chunks than the grid has blocks, so that blocks stride over them;
+   and exactly, bit for bit, at the hub row with integer weights and x in
+   [-8, 8] (every partial sum exact in f32);
+   ``rescale_migrate`` byte for byte, edges and mask, into blocks holding a
+   sentinel (the receive ranges must keep it), at odd and even E_max, a
+   single-row plan, padded rows with receive ranges, and views 8 bytes off a
+   16-byte boundary;
    ``flash_attention`` at the JAX tests' cases in f32 (2e-5, the CUDA-core
    kernel) and bf16 (one bf16 rounding step: 2^-7·|plain| + 1e-4, the
    tensor-core kernel), non-causal, D = 256 with window and softcap, ragged
@@ -140,7 +148,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    equal to the numpy oracle), rescale 16→17 and 8→12→8 with the
    from-scratch byte check, re-checked RF equal to the oracle, PageRank /
    SSSP / WCC on the packs at k = 17 and k = 4; ``segment_rf`` must launch
-   once per pack and re-checked rescale, and no other kernel;
+   once per pack and re-checked rescale, ``rescale_migrate`` once per
+   rescale, and no other kernel;
 11. slice 2, the entry points of the other three kernels, with every launch
    count set to 0 just before it: ``ops.chunked_spmv`` on the GEO-ordered
    edge list with weights 1/deg[src] and the k = 4 PageRank vector as x —
@@ -208,7 +217,8 @@ Phases, in order; any failure raises and the script exits nonzero:
    at RMAT-20, against their predicted counts), the bytes each rank sent and
    received against the plan's cross-rank bytes, and requires every rank's
    ``segment_rf`` launches (5 in (a), 2 in (b)), each exact against the plain
-   version on its rows. Each app runs twice in each rank and the second run is
+   version on its rows, and one ``rescale_migrate`` launch a rescale on every
+   rank (3 in (a), 1 in (b)). Each app runs twice in each rank and the second run is
    its time (the first also loads the ops' kernels in that process).
    ``--cards 4`` runs slice 1 and then only (a) and (c): g = 4 over NCCL, one
    card per rank;
@@ -240,7 +250,7 @@ Phases, in order; any failure raises and the script exits nonzero:
    ``pack_slots_sharded_stream``, one chunk materialized at a time and
    ordered on the card (``order_edge_block``, chunk mode "device": one launch
    of the greedy kernel a chunk); (C) rescales 8 -> 12 -> 8 re-checked
-   through ``segment_rf``; (D) the spill-bounded ingest of 6 batches. The
+   through ``segment_rf``, one ``rescale_migrate`` launch each on every rank; (D) the spill-bounded ingest of 6 batches. The
    parent computes the in-core oracle with every chunk on the greedy's host
    mirror while the ranks run, and holds the reassembled commit byte-equal to
    it, each rank's greedy launches equal to its blocks inside the int32
@@ -272,7 +282,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    as the merged call (both kernels) and as the partials entry point, beside
    SDPA in two forms (3-D with a float mask, 4-D with a boolean mask; the
    faster is the library time), with the bytes the split kernel reads and
-   the rate it reaches.
+   the rate it reaches; ``rescale_migrate`` at slice 1's three plans on the
+   packs they ran on, beside one ``index_select`` of every new slot's edge
+   over a cached gather map, each held byte-equal to the kernel's block.
 
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
@@ -308,14 +320,14 @@ ROOT = pathlib.Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
 H100_FP32_OPS_PER_S = 67e12  # non-tensor-core f32 rate; the kernel's int compares run on the same ALUs
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
-KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder")
+KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder", "rescale_migrate")
 PACK_KS = (4, 16, 64, 128)
 ROW_KS = (4, 8, 12, 16, 17, 64, 128)  # every k whose rows the main path counts
 PAGERANK_RTOL = 1e-4  # CUDA scatter-add uses atomics: f32 sums in varying order
-# f32 sums in varying order (atomics): against a float64 oracle, and kernel
-# against plain version at full size, where a hub vertex sums thousands of terms
+# f32 sums in varying order (atomics): the entry point against a float64
+# oracle. The kernel and its plain version are each held to the
+# order-independent bound of ``within_summation_bound`` instead.
 SPMV_RTOL = 1e-4
-SPMV_PARITY_TOL = 1e-5  # kernel against plain version at the small parity shapes
 F32_TOL, DECODE_TOL = 2e-5, 1e-4
 # A bf16 flash output: the kernel and the plain version each round an f32 sum
 # to bf16 (8 significant bits), so they may differ by one rounding step, at
@@ -327,6 +339,16 @@ GEMMA2 = dict(heads=16, kv_heads=8, head_dim=256, window=4096, softcap=50.0)
 PREFILL_SEQ = 8192
 DECODE_BATCH, DECODE_CACHE, DECODE_BLOCK = 8, 32768, 512
 FLASH_HEAD_GROUP = 8  # heads per call of the dense plain version (its logits: 8 x S^2 f32)
+# rescale_migrate's parity cases, (|E|, k_old, k_new, g, rank, offset of the
+# old view in edges, of the new one): E_max at k_new odd (every other row 8
+# bytes off a 16-byte boundary, so segments' source and destination
+# parities differ) and even; a single-row plan; padded rows (k_new not a
+# multiple of g) with receive ranges; views 8 bytes off a 16-byte boundary;
+# more partitions than edges.
+MIGRATE_PARITY = [(100_003, 16, 17, 1, 0, 0, 0), (100_000, 8, 12, 1, 0, 0, 0), (100_000, 12, 8, 1, 0, 0, 0),
+                  (99_999, 5, 1, 1, 0, 0, 0), (100_003, 7, 5, 4, 1, 0, 0), (100_003, 6, 9, 4, 3, 0, 0),
+                  (100_003, 16, 17, 1, 0, 1, 0), (100_003, 16, 17, 1, 0, 0, 1), (100_001, 3, 7, 2, 1, 1, 1),
+                  (13, 2, 18, 1, 0, 0, 0)]
 # Path 3, the stream at full width: the slice-1 graph over 16 regions (span
 # repairs forced by partial_drift 1.0, the full rung held off by full_drift 99),
 # 3 batches of 1,024 updates, cut from 9 batches and rescales 16→20, 20→12 to
@@ -540,6 +562,42 @@ def rel_close(got: torch.Tensor, want: torch.Tensor, rtol: float, what: str) -> 
     rel = float((diff / want.double().abs()).nan_to_num(0.0, posinf=np.inf).max())
     check(bad == 0, f"{what}: {bad} elements differ by more than rtol {rtol} (max rel {rel:.3e})")
     return rel
+
+
+def spmv_sums64(src, dst, w, x) -> tuple:
+    """Per flat element of ``edge_spmv``'s ``(C, W_V)`` output: the float64
+    sum of the float64 products that reach it, the sum of their magnitudes,
+    and their count, on the tensors' device. (The float64 additions run in
+    any order too; their error, n·2⁻⁵³ of the magnitudes, is 2⁻²⁹ of the
+    bound below.)"""
+    c, wv = x.shape
+    rows = torch.arange(c, device=x.device)[:, None].expand_as(src)
+    ok = (src >= 0) & (src < wv) & (dst >= 0) & (dst < wv)
+    flat = (rows * wv + dst.long())[ok]
+    prod = w.double()[ok] * x.double()[rows[ok], src.long()[ok]]
+    exact = torch.zeros(c * wv, dtype=torch.float64, device=x.device).index_add_(0, flat, prod)
+    mag = torch.zeros_like(exact).index_add_(0, flat, prod.abs())
+    n = torch.zeros_like(exact).index_add_(0, flat, torch.ones_like(prod))
+    return exact, mag, n
+
+
+def within_summation_bound(got, plain, src, dst, w, x, what: str) -> float:
+    """Assert that the kernel's ``got`` and the plain version's ``plain``
+    each lie within n·2⁻²⁴·Σ|wᵢxᵢ|·(1 + n·2⁻²⁴) + 1e-30 of the float64 sum
+    of the same terms, element by element, and so within twice that of each
+    other: (n − 1) roundings of the f32 additions in any order and one of
+    each f32 product, n the terms that reach the element (the bound of
+    ``tests/test_torch_cuda.py _assert_within_summation_bound``). Returns the
+    kernel's largest error as a share of its bound."""
+    exact, mag, n = spmv_sums64(src, dst, w, x)
+    u = 2.0**-24
+    bound = n * u * mag * (1 + n * u) + 1e-30
+    ratios = [float(((t.double().reshape(-1) - exact).abs() / bound).max()) for t in (got, plain)]
+    between = float(((got.double() - plain.double()).reshape(-1).abs() / (2 * bound)).max())
+    check(max(ratios) <= 1 and between <= 1,
+          f"{what}: |err| / bound {ratios[0]:.3f} (kernel), {ratios[1]:.3f} (plain), kernel against plain "
+          f"{between:.3f} of twice the bound, at n up to {int(n.max())}")
+    return ratios[0]
 
 
 def sorted_rows(rng: np.random.Generator, c: int, w: int, pad_id: int) -> np.ndarray:
@@ -889,6 +947,74 @@ def rungs_path(dev, phases: dict, segment_rf) -> dict:
                 graph=(g, src, dst))
 
 
+def migrate_program(rescaler, n: int, k_old: int, k_new: int, g: int, rank: int, dev):
+    """Rank ``rank`` of ``g``'s cached migration program on ``dev``: its
+    table is built from the plan alone, so no process group is needed."""
+    from repro_torch.core import cep
+    from repro_torch.launch.mesh import GraphGroup, make_graph_group
+
+    group = make_graph_group(dev) if g == 1 else GraphGroup(size=g, rank=rank, device=str(dev), backend="gloo",
+                                                            processes=(0,) * g)
+    return rescaler._program(n, k_old, k_new, cep.scale_plan(n, k_old, k_new), group, dev)
+
+
+def migrate_parity(RM, old, prog, new_off: int, what: str) -> int:
+    """``rescale_migrate``'s kernel and plain version on ``old`` into blocks
+    that hold a sentinel (-7), their views ``new_off`` edges past an
+    allocation's start: byte-equal, edges and mask, every slot but the
+    receive ranges' edges written. Returns the slots left to the exchange."""
+    t = prog.table
+    outs = []
+    for fn in (RM.migrate, RM.migrate_torch):
+        e = torch.full((t.rows * t.width * 2 + 2 * new_off,), -7, dtype=torch.int32, device=old.device)
+        m = torch.full((t.rows * t.width + new_off,), -7.0, device=old.device)
+        outs.append(fn(old, t, out=(e[2 * new_off:].view(t.rows, t.width, 2), m[new_off:].view(t.rows, t.width))))
+    torch.cuda.synchronize()
+    left = sum(b - a for _, _, a, b, _ in prog.recvs)
+    check(torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1]),
+          f"{what}: the kernel's block is not byte-equal to the plain version's")
+    check(int((outs[0][0] == -7).all(dim=2).sum()) == left and not bool((outs[0][1] == -7.0).any()),
+          f"{what}: the kernel wrote a receive range, or left a slot outside them unwritten")
+    return left
+
+
+def migrate_timing(RM, prog, old) -> dict:
+    """``rescale_migrate`` at one of slice 1's plans on the pack it ran on:
+    held byte-equal to the plain version and to the library call; its time
+    on the card alone (calls into one block, captured in a CUDA graph) and
+    as a caller pays it (back-to-back wrapper calls, each allocating its
+    block), the plain version's, and the time of one ``index_select`` of
+    every new slot's edge from the old edges (a zero edge appended, the
+    gather map cached: the edges alone, no mask). The bound counts the
+    bytes the function must move: 8 read an edge copied, 12 written a slot."""
+    t = prog.table
+    got, want = RM.migrate(old, t), RM.migrate_torch(old, t)
+    e_old = old.shape[1]
+    zero = old.shape[0] * e_old  # the appended zero edge
+    gather = np.full(t.rows * t.width, zero, dtype=np.int64)
+    for row, a, b, src, a_old, _ in t.pieces.tolist():
+        if src >= 0:
+            gather[row * t.width + a:row * t.width + b] = np.arange(src * e_old + a_old, src * e_old + a_old + b - a)
+    gather_t = torch.from_numpy(gather).to(old.device)
+    flat = torch.cat([old.reshape(-1, 2), old.new_zeros((1, 2))])
+    lib = flat.index_select(0, gather_t).view(t.rows, t.width, 2)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]) and torch.equal(lib, got[0]),
+          f"rescale_migrate at {prog.stats.k_old}->{prog.stats.k_new}: the kernel, the plain version and "
+          f"index_select disagree")
+    copied = int(sum(b - a for _, a, b, src, *_ in t.pieces.tolist() if src >= 0))
+    slots = t.rows * t.width
+    moved = 8 * copied + 12 * slots
+    bound_ms = moved / H100_BYTES_PER_S * 1e3
+    ms = graph_ms(lambda: RM.migrate(old, t, out=got), 20)
+    del want, lib
+    return dict(shape=[t.rows, t.width], plan=[prog.stats.k_old, prog.stats.k_new], pieces=len(t.pieces),
+                tiles=t.tiles, copy_ops=prog.stats.copy_ops, copied_edges=copied, bytes=moved, ms=ms,
+                wrapper_ms=cuda_ms(lambda: RM.migrate(old, t), 20),
+                plain_ms=cuda_ms(lambda: RM.migrate_torch(old, t), 10),
+                library_ms=cuda_ms(lambda: flat.index_select(0, gather_t), 20), bound_ms=bound_ms,
+                bound_by="bytes", bound_share=bound_ms / ms)
+
+
 def rows_timing(rows, segment_rf) -> dict:
     """``segment_rf``'s time on one (C, W) array of sorted key rows: on the
     card alone (``ms``: wrapper calls captured in a CUDA graph) and as a
@@ -1035,7 +1161,7 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
 
     from repro_torch.elastic.rescale_exec import ElasticRescaler
     from repro_torch.graphs import engine as E
-    from repro_torch.kernels import segment_rf
+    from repro_torch.kernels import rescale_migrate, segment_rf
     from repro_torch.launch import multihost as MH
     from repro_torch.obs import metrics as OM
 
@@ -1072,6 +1198,7 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
     for k in cfg["packs"]:
         datas[f"k{k}"], meta[f"k{k}_pack_s"] = timed(lambda: E.pack_ordered_sharded(src, dst, v, k, group))
         keep(f"k{k}", datas[f"k{k}"])
+    rescale_migrate.launches = 0
     for name, base, k_new in cfg["rescales"]:
         sent0, recv0 = (reg.counter(f"rescale.{c}_bytes").value for c in ("sent", "received"))
         datas[name], st = rx.rescale(datas[base], k_new, verify=True)
@@ -1080,6 +1207,7 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
                           received=reg.counter("rescale.received_bytes").value - recv0)
         print(f"rank {r}: rescale {name} in {st.elapsed_s * 1e3:.3f} ms, sent {meta[name]['sent']:.0f} B, "
               f"received {meta[name]['received']:.0f} B", flush=True)
+    meta["rescale_migrate_launches"] = rescale_migrate.launches
     d = datas[cfg["apps_on"]]
     apps = dict(pagerank=lambda: E.pagerank(d, iterations=20), sssp=lambda: E.sssp(d, source=cfg["source"]),
                 wcc=lambda: E.wcc(d))
@@ -1100,7 +1228,8 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
     np.savez(run_dir / f"rank{r}.npz", **arrays)
     (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
     print(f"rank {r}: apps {meta['pagerank_s']:.3f} / {meta['sssp_s']:.3f} / {meta['wcc_s']:.3f} s (second runs), "
-          f"segment_rf launched {meta['segment_rf_launches']} times", flush=True)
+          f"segment_rf launched {meta['segment_rf_launches']} times, rescale_migrate "
+          f"{meta['rescale_migrate_launches']}", flush=True)
     return 0
 
 
@@ -1184,6 +1313,9 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
                                                                                 meta["segment_rf_tapped"]),
               f"path 5 ({tag}) rank {i}: segment_rf launched {launches} times for {len(names)} packs and "
               f"re-checks, exact {[t['exact'] for t in meta['segment_rf_tapped']]}")
+        check(meta["rescale_migrate_launches"] == len(steps["rescales"]),
+              f"path 5 ({tag}) rank {i}: rescale_migrate launched {meta['rescale_migrate_launches']} times for "
+              f"{len(steps['rescales'])} rescales, each held byte-equal to a from-scratch pack (verify=True)")
         check(meta["snapshot_global"] == ranks[0][1]["snapshot_global"], f"path 5 ({tag}): global snapshots differ")
     glob = ranks[0][1]["snapshot_global"]
     total_cross = sum(ranks[0][1][name]["stats"]["cross_device_bytes"] for name, _, _ in steps["rescales"])
@@ -1192,7 +1324,8 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
           f"{glob['rescale.received_bytes']}, expected {total_cross}")
     out = dict(ranks=g, processes=n_procs, backend=backend, devices=devices, wall_s=wall, rescales={}, apps={},
                segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
-               segment_rf_shapes=[[t["shape"] for t in m["segment_rf_tapped"]] for _, m in ranks])
+               segment_rf_shapes=[[t["shape"] for t in m["segment_rf_tapped"]] for _, m in ranks],
+               rescale_migrate_launches=[m["rescale_migrate_launches"] for _, m in ranks])
     for name, _, _ in steps["rescales"]:
         st = ranks[0][1][name]["stats"]
         ms = [m[name]["stats"]["elapsed_s"] * 1e3 for _, m in ranks]
@@ -1217,7 +1350,8 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
                     f"({[round(x, 3) for x in out['apps'][f'{app}_first_s_by_rank']]})"
                     for app in ("pagerank", "sssp", "wcc"))
         + f"; PageRank max rel {out['pagerank_rel']:.3e} "
-        f"to slice 1's, SSSP and WCC equal; segment_rf launches by rank {out['segment_rf_launches']}, each exact")
+        f"to slice 1's, SSSP and WCC equal; segment_rf launches by rank {out['segment_rf_launches']}, each exact; "
+        f"rescale_migrate launches by rank {out['rescale_migrate_launches']}, one a rescale")
     return out
 
 
@@ -1476,7 +1610,7 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
     from repro_torch.data import shards as DS
     from repro_torch.elastic.rescale_exec import ElasticRescaler
     from repro_torch.kernels import full_reorder as FRK
-    from repro_torch.kernels import segment_rf
+    from repro_torch.kernels import rescale_migrate, segment_rf
     from repro_torch.launch import multihost as MH
     from repro_torch.obs import metrics as OM
 
@@ -1541,7 +1675,9 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
         up = rescale(data, OH.K_UP)
         return up, rescale(up, OH.K_PACK)
 
+    rescale_migrate.launches = 0
     up, back = phase("C", phase_c)
+    migrations = rescale_migrate.launches
     arrays.update(up_edges=up.edges.cpu().numpy(), up_mask=up.mask.cpu().numpy(),
                   back_edges=back.edges.cpu().numpy(), back_mask=back.mask.cpu().numpy())
     stream = phase("D", lambda: OH.stream_phase(plan))
@@ -1557,6 +1693,7 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
                 num_edges=int(data.num_edges), parts=data.local_partitions(), k_pad_up=up.k_pad, wall=wall,
                 peak_rss_mb=rss, rss_field=OM.read_peak_rss()[0], blocks=blocks, rescales=rescales, stream=stream,
                 greedy_launches=FRK.launches, segment_rf_launches=segment_rf.launches,
+                rescale_migrate_launches=migrations,
                 segment_rf_tapped=[dict(shape=list(rows.shape), exact=bool(torch.equal(
                     counts, segment_rf.segment_distinct_counts_torch(rows)))) for rows, counts in rf_tapped])
     dist.destroy_process_group()
@@ -1565,7 +1702,7 @@ def outofcore_worker(run_dir: pathlib.Path) -> int:
     print(f"rank {r}: chunks {[b['chunk'] for b in blocks]}, greedy kernel launched {meta['greedy_launches']} times "
           + ", ".join(f"chunk {b['chunk']} {b['ms']:.3f} ms ({b['steps']} steps, {b['us_per_step']:.2f} us a step, "
                       f"{b['vertices']} vertices, {b['branch']}, {b['cluster']} CTAs)" for b in blocks if "ms" in b)
-          + f"; segment_rf {meta['segment_rf_launches']} times; rescales "
+          + f"; segment_rf {meta['segment_rf_launches']} times; rescale_migrate {migrations}; rescales "
           + ", ".join(f"{x['k_old']}->{x['k_new']} {x['ms']:.3f} ms, sent {x['sent']:.0f} B, received "
                       f"{x['received']:.0f} B" for x in rescales)
           + f"; stream {stream['num_edges']} edges, spills {stream['spill']['spills']}, faults "
@@ -1691,6 +1828,9 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
         check(m["segment_rf_launches"] == len(tapped) == 2 and all(t["exact"] for t in tapped),
               f"path 7 ({tag}) rank {i}: segment_rf launched {m['segment_rf_launches']} times, exact "
               f"{[t['exact'] for t in tapped]}")
+        check(m["rescale_migrate_launches"] == len(m["rescales"]) == 2,
+              f"path 7 ({tag}) rank {i}: rescale_migrate launched {m['rescale_migrate_launches']} times for "
+              f"{len(m['rescales'])} rescales")
         s = m["stream"]
         check(s == first["stream"] and s["peak_resident"] <= OH.SPILL_RESIDENT and s["spill"]["spills"] > 0,
               f"path 7 ({tag}) rank {i}: stream phase {s}, rank 0's {first['stream']}")
@@ -1721,6 +1861,7 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
                peak_rss_mb_by_rank=[max(m["peak_rss_mb"].values()) for _, m in ranks], rss_field=first["rss_field"],
                greedy_launches=[m["greedy_launches"] for _, m in ranks],
                segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
+               rescale_migrate_launches=[m["rescale_migrate_launches"] for _, m in ranks],
                chunks=[{k: b[k] for k in ("chunk", "rows", "unique", "vertices", "steps", "ms", "us_per_step", "branch",
                                           "cluster") if k in b} | {"rank": i}
                        for i, (_, m) in enumerate(ranks) for b in m["blocks"]],
@@ -1733,7 +1874,8 @@ def outofcore_path(tag: str, backend: str, devices: list) -> dict:
         f"{oracle_s:.3f} s beside the ranks); {len(first['chunk_sizes'])} chunks of {first['chunk_sizes']} edges; "
         f"phases A/B/C/D by rank "
         + "; ".join(f"{ph} {[round(x, 3) for x in out['wall_by_rank'][ph]]} s" for ph in "ABCD")
-        + f"; greedy launches by rank {out['greedy_launches']}, segment_rf {out['segment_rf_launches']}; commit "
+        + f"; greedy launches by rank {out['greedy_launches']}, segment_rf {out['segment_rf_launches']}, "
+        f"rescale_migrate {out['rescale_migrate_launches']}; commit "
         f"byte-equal to the mirror oracle; RF at 12 and 8 equal to the oracle's; round trip and k = 12 sequence "
         f"equal; peak RSS {[round(x, 1) for x in out['peak_rss_mb_by_rank']]} MB by rank ({first['rss_field']}); "
         f"stream {first['stream']}; worst RF ratio to geo_order {out['worst_rf_ratio']:.4f} (a reading; geo_order in "
@@ -3005,7 +3147,8 @@ def lmrank_worker(run_dir: pathlib.Path) -> int:
     through ``launch_local_cluster``): (a) and (b) on the rank's device,
     with the port's kernel counters read at the end. Writes ``rank{r}.json``."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import decode_attention, edge_spmv, flash_attention, full_reorder, segment_rf
+    from repro_torch.kernels import (decode_attention, edge_spmv, flash_attention, full_reorder, rescale_migrate,
+                                     segment_rf)
     from repro_torch.launch import multihost as MH
 
     group = MH.initialize_from_env(timeout_s=LMRANK_GROUP_TIMEOUT_S)
@@ -3013,7 +3156,7 @@ def lmrank_worker(run_dir: pathlib.Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32, as in path 10 (b)
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": flash_attention,
-               "decode_attention": decode_attention, "full_reorder": full_reorder}
+               "decode_attention": decode_attention, "full_reorder": full_reorder, "rescale_migrate": rescale_migrate}
     out = {"rank": group.rank, "sp": lmrank_sp(group, dev), "dp": lmrank_dp(group, dev)}
     out["launches"] = {name: m.launches for name, m in kernels.items()}
     (run_dir / f"rank{group.rank}.json").write_text(json.dumps(out))
@@ -3167,12 +3310,13 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import rescale_migrate as RM
     from repro_torch.kernels.ref import segment_distinct_counts_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     modules = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": fa, "decode_attention": dec,
-               "full_reorder": FRK}
+               "full_reorder": FRK, "rescale_migrate": RM}
 
     def reset_launches() -> None:
         for m in modules.values():
@@ -3202,7 +3346,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder")  # what paths 5 and 6 launch
+    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder", "rescale_migrate")  # what paths 5-7 launch
     lib_paths = _build.build_all(built)
     for name in built:
         _build.load(name)
@@ -3297,28 +3441,58 @@ def main() -> int:
         # ------------------------------------------------- kernel parity: edge_spmv
         # dst layouts: "random", "hub" (one dst in every slot), "alternating" (no
         # two neighbours share a dst), "sorted" (long runs, as GEO order makes).
+        # The kernel adds with atomics in a varying order: every float case is
+        # held to the order-independent summation bound; "hub-integer" draws
+        # weights and x from the integers in [-8, 8], so every partial sum of
+        # its 5,001 products (|sum| <= 5,001 * 64 < 2^24) is exact in f32 and
+        # the kernel must equal the plain version bit for bit.
         for c, we, wv, lo, hi, layout in [
                 (2, 16, 32, 0, 33, "random"), (5, 64, 128, 0, 129, "random"), (3, 128, 256, 0, 257, "random"),
                 (1, 1, 8, 0, 8, "random"), (1, 300, 64, 64, 100, "random"), (4, 5000, 512, -3, 600, "random"),
-                (3, 5_001, 512, 0, 512, "hub"), (2, 9_999, 512, 0, 512, "alternating"),
+                (3, 5_001, 512, 0, 512, "hub"), (3, 5_001, 512, 0, 512, "hub-integer"),
+                (2, 9_999, 512, 0, 512, "alternating"),
                 (5, 40_001, 4096, -1, 4097, "sorted"), (700, 6_001, 1024, 0, 1025, "sorted"),
                 (70_000, 3, 8, 0, 9, "sorted")]:
             src_ids = rng.integers(lo, hi, size=(c, we)).astype(np.int32)
             dst_ids = {"random": lambda: rng.integers(lo, hi, size=(c, we)),
-                       "hub": lambda: np.full((c, we), 7),
+                       "hub": lambda: np.full((c, we), 7), "hub-integer": lambda: np.full((c, we), 7),
                        "alternating": lambda: np.broadcast_to(np.arange(we) % 2 * 5 + 3, (c, we)),
                        "sorted": lambda: np.sort(rng.integers(lo, hi, size=(c, we)), axis=1)}[layout]()
             ids = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in (src_ids, dst_ids)]
-            w_t = torch.from_numpy(rng.standard_normal((c, we)).astype(np.float32)).to(dev)
-            x_t = torch.from_numpy(rng.standard_normal((c, wv)).astype(np.float32)).to(dev)
+            draw = (lambda shape: rng.integers(-8, 9, size=shape)) if layout == "hub-integer" else rng.standard_normal
+            w_t = torch.from_numpy(draw((c, we)).astype(np.float32)).to(dev)
+            x_t = torch.from_numpy(draw((c, wv)).astype(np.float32)).to(dev)
             got = edge_spmv.spmv_blocked(*ids, w_t, x_t)
+            plain = edge_spmv.spmv_blocked_torch(*ids, w_t, x_t)
             what = f"(C, W_E, W_V) = ({c}, {we}, {wv}), ids in [{lo}, {hi}), {layout} dst"
-            err = close(got, edge_spmv.spmv_blocked_torch(*ids, w_t, x_t), SPMV_PARITY_TOL, SPMV_PARITY_TOL,
-                        f"edge_spmv parity at {what}")
+            err = float((got - plain).abs().max())
+            if layout == "hub-integer":
+                check(torch.equal(got, plain) and torch.equal(got.double().reshape(-1), spmv_sums64(*ids, w_t, x_t)[0]),
+                      f"edge_spmv parity at {what}: integer sums must be exact")
+                log(f"parity edge_spmv {what}: exact, equal to the plain version bit for bit")
+            else:
+                share = within_summation_bound(got, plain, *ids, w_t, x_t, f"edge_spmv parity at {what}")
+                log(f"parity edge_spmv {what}: max abs err {err:.3e} to the plain version; {share:.3f} of the "
+                    f"summation bound")
             if lo >= wv:
                 check(not bool(got.any()), "edge_spmv: all-padding rows must add exactly 0")
             report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], err)
-            log(f"parity edge_spmv {what}: max abs err {err:.3e}")
+
+        # -------------------------------------------- kernel parity: rescale_migrate
+        # Each case's table is rank `rank` of g's, built from the plan alone.
+        migrate_gen = torch.Generator(device=dev).manual_seed(2)
+        for case in MIGRATE_PARITY:
+            n_, k_old, k_new, g_, rank, old_off, new_off = case
+            prog = migrate_program(ElasticRescaler(), n_, k_old, k_new, g_, rank, dev)
+            m_old = -(-k_old // g_)
+            e_old = -(-n_ // k_old)
+            buf = torch.randint(-2**30, 2**30, (m_old * e_old * 2 + 2 * old_off,), dtype=torch.int32, device=dev,
+                                generator=migrate_gen)
+            left = migrate_parity(RM, buf[2 * old_off:].view(m_old, e_old, 2), prog, new_off,
+                                  f"rescale_migrate parity at {case}")
+            log(f"parity rescale_migrate (|E|, k_old, k_new, g, rank, old/new view offsets) = {case}: E_max "
+                f"{prog.table.width}, {prog.table.rows} rows, {len(prog.table.pieces)} pieces, {prog.table.tiles} "
+                f"tiles: byte-equal, {left} slots of receive ranges left unwritten")
 
         # ------------------------------------------- kernel parity: flash attention
         flash_cases = [(1, 2, 128, 64, None, None, True), (2, 1, 256, 32, None, None, True),
@@ -3513,7 +3687,7 @@ def main() -> int:
 
     # ------------------------------------------------- slice 1: the graph path
     rescaler = ElasticRescaler()
-    packs, expected_launches = {}, 0
+    packs, expected_launches, expected_migrations = {}, 0, 0
     oracle_counts = {}
 
     def oracle(k: int):
@@ -3538,6 +3712,7 @@ def main() -> int:
         plan = rescaler.plan(data, k_new)
         new, stats = rescaler.rescale(data, k_new, verify=True)
         expected_launches += 1
+        expected_migrations += 1
         rescales[name] = (new, stats, plan)
         phases[f"rescale_{name}_s"] = stats.elapsed_s
         phases[f"recheck_{name}_s"] = stats.recheck_s
@@ -3581,9 +3756,12 @@ def main() -> int:
     log(f"apps: PageRank k=17 vs k=4 max rel diff {pr_rel:.3e} (limit {PAGERANK_RTOL}); "
         f"SSSP from {source}: {it_s4} iterations, {reached} reached, equal; "
         f"WCC: {it_w4} iterations, {components} components, equal")
-    check(slice1_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": expected_launches},
-          f"slice 1 launched {slice1_launches}, expected segment_rf {expected_launches} times and nothing else")
-    log(f"slice 1 launches: {slice1_launches} (segment_rf = {len(packs)} packs + {len(rescales)} re-checked rescales)")
+    check(slice1_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": expected_launches,
+                              "rescale_migrate": expected_migrations},
+          f"slice 1 launched {slice1_launches}, expected segment_rf {expected_launches} times, rescale_migrate "
+          f"{expected_migrations} and nothing else")
+    log(f"slice 1 launches: {slice1_launches} (segment_rf = {len(packs)} packs + {len(rescales)} re-checked rescales; "
+        f"rescale_migrate one a rescale)")
 
     # Path 5's inputs: the slice-1 ordered list once, for every rank to load
     # (the GEO order is not computed again per rank), and slice 1's results.
@@ -3871,6 +4049,23 @@ def main() -> int:
             f"{t['wrapper_ms']:.4f} ms a wrapper call, plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
         del rows
 
+    # rescale_migrate at slice 1's three plans, on the packs they ran on (the
+    # programs are the ones slice 1's rescaler cached).
+    migrate_times = []
+    for name, (new, stats, plan) in rescales.items():
+        old = {"16to17": packs[16], "8to12": packs[8], "12to8": rescales["8to12"][0]}[name]
+        prog = migrate_program(rescaler, n, plan.k_old, plan.k_new, 1, 0, old.edges.device)
+        mt = migrate_timing(RM, prog, old.edges)
+        mt.update(execute_ms=stats.elapsed_s * 1e3)
+        migrate_times.append(mt)
+        log(f"rescale_migrate {name} ({mt['shape'][0]} rows of {mt['shape'][1]}, {mt['pieces']} pieces, {mt['tiles']} "
+            f"tiles): {mt['ms']:.4f} ms on the card alone, {mt['wrapper_ms']:.4f} ms a wrapper call, plain "
+            f"{mt['plain_ms']:.4f} ms, index_select {mt['library_ms']:.4f} ms, bound {mt['bound_ms']:.4f} ms "
+            f"({mt['bytes']} B; {mt['bound_share']:.3f} of it); execute {mt['execute_ms']:.3f} ms in slice 1; "
+            f"byte-equal to the plain version and to index_select")
+        torch.cuda.empty_cache()
+    report["rescale_migrate"].update(migrate_times[0], other_shapes=migrate_times[1:])
+
     spmv_times = []
     for name, (bounds, starts, size) in spmv_calls.items():
         src_l, dst_l, wts, _ = spmv_packs.pop(name)
@@ -3879,7 +4074,7 @@ def main() -> int:
         x_win = x_pad.unfold(0, size, 1)[torch.tensor(starts, device=dev)]
         got = edge_spmv.spmv_blocked(*args_t, x_win)
         want = edge_spmv.spmv_blocked_torch(*args_t, x_win)
-        rel = rel_close(got, want, SPMV_RTOL, f"edge_spmv ({name}) against the plain version")
+        share = within_summation_bound(got, want, *args_t, x_win, f"edge_spmv ({name}) against the plain version")
         report["edge_spmv"]["max_abs_err"] = max(report["edge_spmv"]["max_abs_err"], float((got - want).abs().max()))
         # The library yardstick: index_add_ of the precomputed products into
         # the flat output. It leaves out the gather of x, the product and the
@@ -3901,11 +4096,12 @@ def main() -> int:
         spmv_times.append(dict(
             shape=[c_, w_e, size], ms=ms, plain_ms=cuda_ms(lambda: edge_spmv.spmv_blocked_torch(*args_t, x_win), 5),
             bound_ms=bound_ms, bound_by="bytes", bound_share=bound_ms / ms, library_ms=lib_ms, valid_slots=n_valid,
-            x_read=gathered))
+            x_read=gathered, summation_bound_share=share))
         log(f"edge_spmv ({name}) (C, W_E, W_V) = ({c_}, {w_e}, {size}): {ms:.4f} ms, plain "
             f"{spmv_times[-1]['plain_ms']:.4f} ms, index_add_ {lib_ms:.4f} ms ({lib_ms / ms:.3f}× the kernel's time), "
             f"bound {bound_ms:.4f} ms ({bound_ms / ms:.3f} of it; {spmv_bytes} B, {n_valid} valid slots, {gathered} "
-            f"distinct x entries gathered); max rel diff to the plain version {rel:.3e}")
+            f"distinct x entries gathered); {share:.3f} of the summation bound, max abs diff to the plain version "
+            f"{float((got - want).abs().max()):.3e}")
         del args_t, x_pad, x_win, got, want, valid, flat, prod
     report["edge_spmv"].update(spmv_times[0], other_shapes=spmv_times[1:])
 
@@ -3990,14 +4186,17 @@ def main() -> int:
         "flash_attention": "src/repro/kernels/flash_attention.py:117",
         "decode_attention": "src/repro/kernels/decode_attention.py:76",
         "full_reorder": "src/repro/kernels/full_reorder.py:231",
+        "rescale_migrate": "src/repro/elastic/rescale_exec.py:470",  # the jitted migrate: no pl.pallas_call
     }
     launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_},
                 "full_reorder": rungs_launches["full_reorder"]}
     by_path = {"slice1": slice1_launches, "slice2": slice2_launches, "stream": stream_launches,
                "rungs": rungs_launches, "twins": twin_launches}
     for tag, read in multirank_read.items():  # path 5: each rank's own launches, counted from 0 in its process
-        by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"])}
+        by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
+                                       "rescale_migrate": sum(read["rescale_migrate_launches"])}
         report["segment_rf"][f"multirank_{tag}_by_rank"] = read["segment_rf_launches"]
+        report["rescale_migrate"][f"multirank_{tag}_by_rank"] = read["rescale_migrate_launches"]
     for tag, read in streamrank_read.items():  # path 6: the same
         by_path[f"streamrank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
                                         "full_reorder": sum(read["greedy_launches"])}
@@ -4012,7 +4211,9 @@ def main() -> int:
     report["full_reorder"]["control_a_before_after_restore"] = control_read["a"]["launches"]["full_reorder"]
     for tag, read in outofcore_read.items():  # path 7: the same
         by_path[f"outofcore_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
-                                       "full_reorder": sum(read["greedy_launches"])}
+                                       "full_reorder": sum(read["greedy_launches"]),
+                                       "rescale_migrate": sum(read["rescale_migrate_launches"])}
+        report["rescale_migrate"][f"outofcore_{tag}_by_rank"] = read["rescale_migrate_launches"]
         report["segment_rf"][f"outofcore_{tag}_by_rank"] = read["segment_rf_launches"]
         report["full_reorder"][f"outofcore_{tag}_by_rank"] = read["greedy_launches"]
         report["full_reorder"][f"outofcore_{tag}_chunks"] = [
@@ -4037,7 +4238,7 @@ def main() -> int:
             "replaces": sources[name],
             "launches": launches[name],
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-            "parity": "exact" if name in ("segment_rf", "full_reorder") else "allclose",
+            "parity": "exact" if name in ("segment_rf", "full_reorder", "rescale_migrate") else "allclose",
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4049,7 +4250,7 @@ def main() -> int:
             **({"merge_launches": slice2_merges} if name == "decode_attention" else {}),
             **{key: r[key] for key in ("wrapper_ms", "partials_ms", "sdpa_3d_mask_ms", "sdpa_4d_bool_mask_ms",
                                        "kernel_bytes", "kernel_tb_per_s", "steps", "us_per_step", "enqueue_ms",
-                                       "order_ms", "mirror_ms", "walked", "wide") if key in r},
+                                       "order_ms", "mirror_ms", "walked", "wide", "plan", "execute_ms") if key in r},
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),

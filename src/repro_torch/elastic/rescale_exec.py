@@ -3,20 +3,23 @@
 ``cep.scale_plan(k_old → k_new)`` names the ≤ k_old + k_new − 1 ordered-edge
 ranges whose owner changes; everything else stays where it is. This module
 applies such a plan directly to the packed ``(k, E_max, 2)`` buffers of
-graphs/engine.py as one slice copy per overlay segment into a fresh buffer —
-so executing a rescale costs O(overlay ranges) copy launches and moves exactly
-the Thm.-2-minimal edge ranges across partitions, instead of re-running any
+graphs/engine.py as one copy per overlay segment into a fresh buffer — so
+executing a rescale costs O(overlay ranges) of planning and moves exactly the
+Thm.-2-minimal edge ranges across partitions, instead of re-running any
 partitioner or re-packing from the host.
 
 The JAX package compiles the copies into one jitted program and donates the
-old buffer to it. Here the copies run eagerly on the data's device, the
-result is a fresh tensor and the input stays valid: no donation. Over a
-``ShardedEngineData`` of g ranks each rank builds the same sorted segment
-list from the plan alone; a segment whose source row ``partition_row(s,
-k_old, g)`` and destination row ``partition_row(d, k_new, g)`` are on one
-rank is a slice copy there, every other one a send and a receive between the
-two ranks (``launch/multihost.py exchange``: NCCL on the cards, gloo staged
-through host memory).
+old buffer to it. Here each rank's share of the program is a segment table
+(``kernels/rescale_migrate.py MigrateTable``), built and uploaded once per
+cached program, and one launch of the ``rescale_migrate`` CUDA kernel writes
+the rank's whole new block from it (edges and mask; the plain PyTorch version
+on the CPU). The result is a fresh tensor and the input stays valid: no
+donation. Over a ``ShardedEngineData`` of g ranks each rank builds the same
+sorted segment list from the plan alone; a segment whose source row
+``partition_row(s, k_old, g)`` and destination row ``partition_row(d, k_new,
+g)`` are on one rank is a copy there, every other one a send and a receive
+between the two ranks (``launch/multihost.py exchange``: NCCL on the cards,
+gloo staged through host memory), into a range the kernel leaves unwritten.
 
 Cost accounting (``RescaleStats``) keeps the JAX package's fields:
 
@@ -41,6 +44,7 @@ import torch
 from ..core import cep
 from ..graphs import engine as graph_engine
 from ..kernels import ops
+from ..kernels import rescale_migrate as RM
 from ..launch import multihost as MH
 from ..launch import sharding as SH
 from ..launch.mesh import make_graph_group
@@ -174,9 +178,9 @@ class RescaleStats:
     migrated_bytes: int  # migrated_edges · EDGE_BYTES
     stay_edges: int  # rows whose owner is unchanged
     local_shift_edges: int  # stays that changed slot inside their partition
-    copy_ops: int  # slice copies the migration issues
+    copy_ops: int  # plan segments the migration copies (the reference's slice copies)
     oracle_checked: bool  # compared bit-exactly vs a from-scratch pack
-    elapsed_s: float  # wall time of the copies, after a device synchronize
+    elapsed_s: float  # wall time of the migration and the exchange, after a device synchronize
     recheck_s: float  # metrics re-check (+ oracle compare) time
     devices: int = 1  # graph-axis size the migration ran over
     cross_device_edges: int = 0  # migrated rows crossing a device boundary
@@ -190,20 +194,21 @@ class RescaleStats:
 @dataclasses.dataclass(frozen=True)
 class _Program:
     """A cached migration for one rank: its share of the copy segments, the
-    precomputed k_new mask block and the stats that depend on the plan alone.
+    device segment table the kernel reads, and the stats that depend on the
+    plan alone.
 
     Segments are ``(lo, hi, src_part, dst_part)`` in ``plan_segments`` order,
     the same on every rank. ``local`` holds those whose source and
     destination rows are both this rank's, as local (row, column) slices;
     ``sends``/``recvs`` the rest that touch this rank, each ``(peer, row,
-    col_lo, col_hi, tag)`` with the tag the segment's index."""
+    col_lo, col_hi, tag)`` with the tag the segment's index. ``table`` covers
+    every slot of the rank's new block once: ``local``, the receive ranges,
+    each row's zero tail and the padded rows."""
 
     local: tuple  # (row_old, a_old, b_old, row_new, a_new, b_new), local rows
     sends: tuple
     recvs: tuple
-    e_max_new: int
-    rows_new: int  # m_new, this rank's row count at k_new
-    mask_new: torch.Tensor  # (m_new, e_max_new) f32
+    table: RM.MigrateTable  # on the data's device, uploaded once; rows m_new, width E_max at k_new
     stats: RescaleStats
 
 
@@ -316,15 +321,14 @@ class ElasticRescaler:
         _synchronize(device)
         t0 = time.perf_counter()
         with self.tracer.span("rescale.migrate"):
-            new_edges = torch.zeros((prog.rows_new, prog.e_max_new, 2), dtype=data.edges.dtype, device=device)
-            for r_old, a_old, b_old, r_new, a_new, b_new in prog.local:
-                new_edges[r_new, a_new:b_new] = data.edges[r_old, a_old:b_old]
+            # One kernel launch writes every slot but the receive ranges'
+            # edges, which the exchange fills (before or after it lands).
+            new_edges, new_mask = RM.migrate(data.edges, prog.table)
             sent, received = MH.exchange(
                 group,
                 [(peer, data.edges[r, a:b], tag) for peer, r, a, b, tag in prog.sends],
                 [(peer, new_edges[r, a:b], tag) for peer, r, a, b, tag in prog.recvs],
             )
-            new_mask = prog.mask_new.clone()
             _synchronize(device)
         elapsed = time.perf_counter() - t0
         m = self.metrics
@@ -438,19 +442,15 @@ class ElasticRescaler:
             cross_process_edges=xproc,
             cross_process_bytes=xproc * EDGE_BYTES,
         )
-        mask_rows = np.zeros(m_new, dtype=np.int64)
+        row_sizes = np.zeros(m_new, dtype=np.int64)  # padded rows hold none
         for d in range(me, k_new, g):  # this rank's partitions: d % g == me, at row d // g
-            mask_rows[d // g] = sizes_new[d]
-        mask_new = torch.from_numpy(
-            (np.arange(e_max_new)[None, :] < mask_rows[:, None]).astype(np.float32)
-        ).to(device)
+            row_sizes[d // g] = sizes_new[d]
+        table = RM.migrate_table(local, [(r, a, b) for _, r, a, b, _ in recvs], row_sizes, e_max_new, device)
         prog = _Program(
             local=tuple(local),
             sends=tuple(sends),
             recvs=tuple(recvs),
-            e_max_new=e_max_new,
-            rows_new=m_new,
-            mask_new=mask_new,
+            table=table,
             stats=stats,
         )
         return self._programs.put(key, prog)

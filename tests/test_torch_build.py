@@ -9,7 +9,7 @@ import pytest
 
 from repro_torch.kernels import _build
 
-NAMES = ["segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder"]
+NAMES = ["segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder", "rescale_migrate"]
 
 
 @pytest.fixture

@@ -1,5 +1,6 @@
 """The port on the GPU: each CUDA kernel (segment_rf, edge_spmv,
-flash_attention, decode_attention) against its plain version, the paths on
+flash_attention, decode_attention, full_reorder, rescale_migrate) against
+its plain version, the paths on
 the card against the same paths on the CPU, and the streaming engine's device
 programs against their host mirrors and the ``pack_slots`` oracle, and the
 multi-rank layout on the one card (ranks over gloo, one rank over NCCL), and
@@ -26,7 +27,7 @@ from repro_torch.core.graph import rmat_graph
 from repro_torch.elastic.rescale_exec import ElasticRescaler
 from repro_torch.graphs import engine as E
 from repro_torch.kernels import decode_attention as dec
-from repro_torch.kernels import edge_spmv, ops, ref, segment_rf
+from repro_torch.kernels import edge_spmv, ops, ref, rescale_migrate, segment_rf
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import multihost as MH
 from repro_torch.launch import sharding as SH
@@ -119,13 +120,118 @@ def test_pack_on_cuda_equals_pack_on_cpu_and_oracle(cuda, ordered, k):
 
 
 def test_rescale_on_cuda_rechecks_through_the_kernel(cuda, ordered):
+    """One launch of the migration kernel and one of ``segment_rf`` a
+    re-checked rescale; the migration alone without the re-check."""
     g, s, d = ordered
     data = E.pack_ordered(s, d, g.num_vertices, 8)
-    before = segment_rf.launches
+    before, migrations = segment_rf.launches, rescale_migrate.launches
     new, stats = ElasticRescaler().rescale(data, 12, verify=True)
-    assert segment_rf.launches == before + 1
+    assert (segment_rf.launches, rescale_migrate.launches) == (before + 1, migrations + 1)
     assert stats.oracle_checked and new.edges.device.type == "cuda"
     assert new.replication_factor == metrics.replication_factor_ordered(s, d, 12, g.num_vertices)
+    back, _ = ElasticRescaler().rescale(new, 8, verify=True, recheck=False)
+    assert (segment_rf.launches, rescale_migrate.launches) == (before + 1, migrations + 2)
+    assert torch.equal(back.edges, data.edges) and torch.equal(back.mask, data.mask)
+
+
+# ------------------------------------------------------------ rescale_migrate
+def _migrate_program(n, k_old, k_new, g, rank, device):
+    """Rank ``rank`` of ``g``'s migration program on ``device`` (the table is
+    built from the plan alone; no process group is needed)."""
+    from repro_torch.launch.mesh import GraphGroup, make_graph_group
+
+    group = make_graph_group(device) if g == 1 else GraphGroup(size=g, rank=rank, device=str(device),
+                                                                backend="gloo", processes=(0,) * g)
+    plan = cep.scale_plan(n, k_old, k_new)
+    return ElasticRescaler()._program(n, k_old, k_new, plan, group, torch.device(device))
+
+
+# (n, k_old, k_new, g, rank, offset of the old view in edges, of the new one):
+# E_max at k_new odd (every other row starts 8 bytes off a 16-byte boundary,
+# so segments' source and destination parities differ) and even; a
+# single-row plan; padded rows (k_new not a multiple of g) with receive
+# ranges; views 8 bytes off a 16-byte boundary; RMAT-20's 16 -> 17.
+MIGRATE_CASES = [(100_003, 16, 17, 1, 0, 0, 0), (100_000, 8, 12, 1, 0, 0, 0), (100_000, 12, 8, 1, 0, 0, 0),
+                 (99_999, 5, 1, 1, 0, 0, 0), (100_003, 7, 5, 4, 1, 0, 0), (100_003, 6, 9, 4, 3, 0, 0),
+                 (100_003, 16, 17, 1, 0, 1, 0), (100_003, 16, 17, 1, 0, 0, 1), (100_001, 3, 7, 2, 1, 1, 1),
+                 (13, 2, 18, 1, 0, 0, 0), (15_701_711, 16, 17, 1, 0, 0, 0)]
+
+
+@pytest.mark.parametrize("n,k_old,k_new,g,rank,old_off,new_off", MIGRATE_CASES,
+                         ids=["odd-E_max", "even-E_max", "12to8", "single-row", "padded-rows-recv",
+                              "padded-rows-g4", "old-view-off-16B", "new-view-off-16B", "both-views-off",
+                              "past-E", "rmat20-16to17"])
+def test_migrate_kernel_equals_plain_version(cuda, n, k_old, k_new, g, rank, old_off, new_off):
+    """Byte for byte, edges and mask, with the blocks filled with a sentinel
+    first: every slot the plain version writes the kernel writes the same,
+    and the receive ranges keep the sentinel in both."""
+    prog = _migrate_program(n, k_old, k_new, g, rank, cuda)
+    t = prog.table
+    m_old = SH.padded_partition_count(k_old, g) // g
+    e_old = int(np.diff(cep.chunk_bounds(n, k_old)).max())
+    gen = torch.Generator(device=cuda).manual_seed(n + k_new)
+    buf = torch.randint(-2**30, 2**30, (m_old * e_old * 2 + 2 * old_off,), dtype=torch.int32, device=cuda,
+                        generator=gen)
+    old = buf[2 * old_off:].view(m_old, e_old, 2)
+    outs = []
+    for fn in (rescale_migrate.migrate, rescale_migrate.migrate_torch):
+        e = torch.full((t.rows * t.width * 2 + 2 * new_off,), -7, dtype=torch.int32, device=cuda)
+        m = torch.full((t.rows * t.width + new_off,), -7.0, device=cuda)
+        out = (e[2 * new_off:].view(t.rows, t.width, 2), m[new_off:].view(t.rows, t.width))
+        before = rescale_migrate.launches
+        assert fn(old, t, out=out)[0].data_ptr() == out[0].data_ptr()
+        assert rescale_migrate.launches == before + (fn is rescale_migrate.migrate)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    left = sum(b - a for _, _, a, b, _ in prog.recvs)
+    assert int((outs[0][0] == -7).all(dim=2).sum()) == left and (left > 0) == bool(prog.recvs)
+    assert not bool((outs[0][1] == -7.0).any())
+
+
+def test_migrate_kernel_allocates_its_outputs(cuda, ordered):
+    g, s, d = ordered
+    data = E.pack_ordered(s, d, g.num_vertices, 8)
+    t = _migrate_program(len(s), 8, 12, 1, 0, cuda).table
+    edges, mask = rescale_migrate.migrate(data.edges, t)
+    want_edges, want_mask = E.host_pack(s, d, 12)
+    assert edges.cpu().numpy().tobytes() == want_edges.tobytes() and mask.cpu().numpy().tobytes() == want_mask.tobytes()
+
+
+@pytest.mark.parametrize("bad", ["int64", "too-narrow", "non-contiguous", "table-on-cpu", "out-dtype"])
+def test_migrate_wrapper_rejects_bad_input(cuda, bad):
+    t = _migrate_program(1000, 4, 5, 1, 0, cuda).table
+    old = torch.zeros((4, 250, 2), dtype=torch.int32, device=cuda)
+    out = None
+    exc = ValueError
+    if bad == "int64":
+        old, exc = old.long(), TypeError
+    elif bad == "too-narrow":
+        old = old[:, :200].contiguous()
+    elif bad == "non-contiguous":
+        old = torch.zeros((4, 250, 2, 2), dtype=torch.int32, device=cuda)[..., 0]
+    elif bad == "table-on-cpu":
+        t = _migrate_program(1000, 4, 5, 1, 0, "cpu").table
+    else:
+        out = (torch.zeros((5, 200, 2), dtype=torch.int32, device=cuda), torch.zeros((5, 200), device=cuda).double())
+    before = rescale_migrate.launches
+    with pytest.raises(exc):
+        rescale_migrate.migrate(old, t, out=out)
+    assert rescale_migrate.launches == before
+
+
+def test_migrate_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses raises with the CUDA error's string and
+    counts nothing: here the C entry point returns cudaErrorInvalidValue (1),
+    what it returns for a grid it cannot launch. Nothing falls back to the
+    plain version."""
+    rescale_migrate._kernel()
+    monkeypatch.setattr(rescale_migrate, "_fn", lambda *args: 1)
+    t = _migrate_program(1000, 4, 5, 1, 0, cuda).table
+    before = rescale_migrate.launches
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        rescale_migrate.migrate(torch.zeros((4, 250, 2), dtype=torch.int32, device=cuda), t)
+    assert rescale_migrate.launches == before
 
 
 def test_apps_on_cuda_match_cpu(cuda, ordered):
@@ -792,7 +898,8 @@ def test_multirank_layout_on_the_card(cuda, ordered, tmp_path, backend, n_procs,
     rank on the one card: two ranks over gloo (NCCL refuses two ranks of one
     communicator on one device), or one rank over NCCL. Its sharded packs and
     verified rescales are held byte-equal to the host pack, its apps against
-    the port on the CPU, and every rank must have launched ``segment_rf``."""
+    the port on the CPU, and every rank must have launched ``segment_rf``,
+    and the migration kernel once a rescale."""
     g, src, dst = ordered
     src, dst, v = src.astype(np.int32), dst.astype(np.int32), g.num_vertices
     source = int(np.argmax(np.bincount(np.concatenate([src, dst]), minlength=v)))
@@ -827,6 +934,11 @@ def test_multirank_layout_on_the_card(cuda, ordered, tmp_path, backend, n_procs,
         assert meta["group"][:3] == [world, meta["rank"], backend]
         assert meta["segment_rf_launches"] > 0
         assert meta["chain_stats"][0]["oracle_checked"]
+        # One migration launch a rescale on every rank; re-run into a block
+        # holding a sentinel, the receive ranges (gloo: the other rank's
+        # ranges) keep it and every other slot equals the executed result.
+        assert meta["rescale_migrate_launches"] == len(MULTIHOST_RESCALES)
+        assert all(meta["recv_left"].values()) and len(meta["recv_left"]) == len(MULTIHOST_RESCALES)
 
 
 # ------------------------------------------------------ stream over ranks

@@ -29,9 +29,9 @@ if __name__ == "__main__":  # the worker: make the port importable without pytes
     sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import cep  # noqa: E402
-from repro_torch.elastic.rescale_exec import EDGE_BYTES, ElasticRescaler  # noqa: E402
+from repro_torch.elastic.rescale_exec import EDGE_BYTES, ElasticRescaler, plan_segments  # noqa: E402
 from repro_torch.graphs import engine as E  # noqa: E402
-from repro_torch.kernels import segment_rf  # noqa: E402
+from repro_torch.kernels import rescale_migrate, segment_rf  # noqa: E402
 from repro_torch.launch import multihost as MH  # noqa: E402
 from repro_torch.launch import sharding as SH  # noqa: E402
 from repro_torch.launch.mesh import GraphGroup, make_graph_group  # noqa: E402
@@ -83,10 +83,32 @@ def worker(out_dir: pathlib.Path) -> None:
     keep("chain12", d12)
     keep("chain8", back)
     meta["chain_stats"] = [_stats_dict(s_out), _stats_dict(s_in)]
+    olds = {(8, 12): d8, (12, 8): d12}
     for k_old, k_new in PAIRS:
-        new, st = rx.rescale(E.pack_ordered_sharded(src, dst, v, k_old, group), k_new, verify=True)
+        olds[(k_old, k_new)] = E.pack_ordered_sharded(src, dst, v, k_old, group)
+        new, st = rx.rescale(olds[(k_old, k_new)], k_new, verify=True)
         keep(f"pair{k_old}_{k_new}", new)
         meta[f"pair{k_old}_{k_new}_stats"] = _stats_dict(st)
+    meta["rescale_migrate_launches"] = rescale_migrate.launches  # one a rescale on a card, none on the CPU
+
+    # Each rescale's table, and its migration again into a block that holds
+    # a sentinel: the receive ranges must still hold it, every other slot
+    # the executed result.
+    meta["tables"], meta["recv_left"] = {}, {}
+    for (k_old, k_new), old in olds.items():
+        prog = rx._programs._programs[("migrate", src.shape[0], k_old, k_new, group, old.edges.device)]
+        t = prog.table
+        meta["tables"][f"{k_old}_{k_new}"] = dict(pieces=t.pieces.tolist(), sends=list(prog.sends),
+                                                  recvs=list(prog.recvs), rows=t.rows, width=t.width)
+        out = (torch.full((t.rows, t.width, 2), -7, dtype=torch.int32, device=old.edges.device),
+               torch.full((t.rows, t.width), -7.0, device=old.edges.device))
+        edges = rescale_migrate.migrate(old.edges, t, out=out)[0].cpu().numpy()
+        name = {(8, 12): "chain12", (12, 8): "chain8"}.get((k_old, k_new), f"pair{k_old}_{k_new}")
+        left = np.zeros(edges.shape[:2], dtype=bool)
+        for _, r_, a, b, _ in prog.recvs:
+            left[r_, a:b] = True
+        meta["recv_left"][name] = bool((edges[left] == -7).all() and (edges[~left] == arrays[f"{name}_edges"][~left]).all()
+                                       and (out[1].cpu().numpy() == arrays[f"{name}_mask"]).all())
 
     for k in APP_KS:
         d = E.pack_ordered_sharded(src, dst, v, k, group)
@@ -255,6 +277,35 @@ def test_awkward_pairs_byte_equal_with_cross_rank_and_process_accounting(cluster
     assert (st["cross_process_edges"], st["cross_process_bytes"]) == (xproc, xproc * EDGE_BYTES)
     assert st["on_device_edges"] == plan.migrated_edges - cross
     assert {meta[f"pair{k_old}_{k_new}"]["mirrors"] for _, meta in cluster.ranks} == {want.mirrors}
+
+
+@pytest.mark.parametrize("rescale", [f"{a}_{b}" for a, b in CHAIN + PAIRS])
+def test_segment_tables_leave_the_receive_ranges_to_the_peers_sends(cluster, rescale):
+    """Each rank's migration table covers its block once; its receive ranges
+    are the ranges that the other ranks send it (one send a receive, equal
+    lengths, by tag), and the copies and receives over all ranks are the
+    plan's segments. Re-run into a block holding a sentinel, the migration
+    leaves exactly the receive ranges unwritten, and no rank launched the
+    kernel on the CPU."""
+    k_old, k_new = map(int, rescale.split("_"))
+    plan = cep.scale_plan(cluster.jg.num_edges, k_old, k_new)
+    tables = [meta["tables"][rescale] for _, meta in cluster.ranks]
+    for me, t in enumerate(tables):
+        covered = np.zeros((t["rows"], t["width"]), dtype=np.int64)
+        for row, a, b, *_ in t["pieces"]:
+            covered[row, a:b] += 1
+        assert (covered == 1).all()
+        recvs = [(row, a, b) for row, a, b, kind, *_ in t["pieces"] if kind == rescale_migrate.RECV]
+        assert sorted(recvs) == sorted((r, a, b) for _, r, a, b, _ in t["recvs"])
+        for owner, r, a, b, tag in t["recvs"]:
+            (send,) = [s for s in tables[owner]["sends"] if (s[0], s[4]) == (me, tag)]
+            assert owner != me and send[3] - send[2] == b - a
+    copies = sum(sum(1 for p in t["pieces"] if p[3] >= 0) + len(t["recvs"]) for t in tables)
+    assert copies == len(plan_segments(plan))
+    assert sum(len(t["sends"]) for t in tables) == sum(len(t["recvs"]) for t in tables)
+    name = {"8_12": "chain12", "12_8": "chain8"}.get(rescale, f"pair{rescale}")
+    assert all(meta["recv_left"][name] for _, meta in cluster.ranks)
+    assert all(meta["rescale_migrate_launches"] == 0 for _, meta in cluster.ranks)
 
 
 def test_cross_process_plan_edges_equals_reference(J):
