@@ -31,6 +31,14 @@ Cost accounting (``RescaleStats``) keeps the JAX package's fields:
   processes (hosts): what a multi-host deployment pays on the network;
 * ``local_shift_edges`` — rows that keep their owner but land at a different
   slot in the padded buffer because the chunk start moved.
+
+Spans (``obs/trace.py``, on the rescaler's tracer): ``rescale.plan`` around
+``cep.scale_plan``; ``rescale.execute`` around the rest, holding in turn
+``rescale.layout_check`` (ending at its readback), ``rescale.table_build`` (a
+program-cache miss only), ``rescale.migrate`` (``RescaleStats.elapsed_s``) and
+``rescale.recheck`` (``RescaleStats.recheck_s``), the last split into
+``rescale.recheck.rows`` (``packed_rows``' where and sort) and
+``rescale.recheck.count`` (``segment_rf`` through the readbacks).
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from ..core import cep
 from ..graphs import engine as graph_engine
 from ..kernels import ops
 from ..kernels import rescale_migrate as RM
+from ..kernels import segment_rf
 from ..launch import multihost as MH
 from ..launch import sharding as SH
 from ..launch.mesh import make_graph_group
@@ -260,7 +269,8 @@ class ElasticRescaler:
 
     # ------------------------------------------------------------- planning
     def plan(self, data, k_new: int) -> cep.ScalePlan:
-        return cep.scale_plan(data.num_edges, data.k, k_new)
+        with self.tracer.span("rescale.plan"):
+            return cep.scale_plan(data.num_edges, data.k, k_new)
 
     # ------------------------------------------------------------ execution
     def execute(self, data, plan: cep.ScalePlan, *, verify: bool = False, recheck: bool = True):
@@ -282,17 +292,86 @@ class ElasticRescaler:
         (``host_read``), packs the ordered list from scratch at k_new there and
         compares byte for byte.
         """
-        n, k_old, k_new = plan.num_edges, plan.k_old, plan.k_new
-        if data.k != k_old:
-            raise ValueError(f"plan is for k_old={k_old} but engine data has k={data.k}")
-        if data.num_edges != n:
-            raise ValueError(f"plan is for |E|={n} but engine data has |E|={data.num_edges}")
-        group, parts = _layout_of(data)
-        device = data.edges.device
-        # Layout check over this rank's rows (per-row edge counts reduced on
-        # the device, m ints to host), then one all_reduce MIN of the verdict
-        # so that every rank raises together and none is left waiting at the
-        # next collective.
+        tracer = self.tracer
+        with tracer.span("rescale.execute"):
+            n, k_old, k_new = plan.num_edges, plan.k_old, plan.k_new
+            if data.k != k_old:
+                raise ValueError(f"plan is for k_old={k_old} but engine data has k={data.k}")
+            if data.num_edges != n:
+                raise ValueError(f"plan is for |E|={n} but engine data has |E|={data.num_edges}")
+            group, parts = _layout_of(data)
+            device = data.edges.device
+            with tracer.span("rescale.layout_check"):
+                self._check_layout(data, n, k_old, group, parts, device)
+            if k_new == k_old:
+                # No-op plan: hand the buffers back untouched.
+                stats = RescaleStats(
+                    k_old=k_old, k_new=k_new, num_edges=n, migrated_edges=0,
+                    migrated_bytes=0, stay_edges=n, local_shift_edges=0,
+                    copy_ops=0, oracle_checked=False, elapsed_s=0.0, recheck_s=0.0,
+                    devices=group.size, processes=group.process_count,
+                )
+                return data, stats
+
+            prog = self._program(n, k_old, k_new, plan, group, device)
+            _synchronize(device)
+            t0 = time.perf_counter()
+            with tracer.span("rescale.migrate"):
+                # One kernel launch writes every slot but the receive ranges'
+                # edges, which the exchange fills (before or after it lands).
+                new_edges, new_mask = RM.migrate(data.edges, prog.table)
+                sent, received = MH.exchange(
+                    group,
+                    [(peer, data.edges[r, a:b], tag) for peer, r, a, b, tag in prog.sends],
+                    [(peer, new_edges[r, a:b], tag) for peer, r, a, b, tag in prog.recvs],
+                )
+                _synchronize(device)
+            elapsed = time.perf_counter() - t0
+            m = self.metrics
+            m.counter("rescale.migrated_bytes").inc(prog.stats.migrated_bytes)
+            m.counter("rescale.cross_device_bytes").inc(prog.stats.cross_device_bytes)
+            m.counter("rescale.cross_process_bytes").inc(prog.stats.cross_process_bytes)
+            m.counter("rescale.sent_bytes").inc(sent)  # this rank's share of the cross-rank traffic
+            m.counter("rescale.received_bytes").inc(received)
+
+            with tracer.span("rescale.recheck"):
+                # Metrics re-check: recompute quality numbers for the new k
+                # (never carried over from the old pack). A rescale does not
+                # change degrees, so the touched-vertex count comes from them.
+                t1 = time.perf_counter()
+                if recheck:
+                    with tracer.span("rescale.recheck.rows"):
+                        rows = ops.packed_rows(new_edges, new_mask)
+                    with tracer.span("rescale.recheck.count"):
+                        local = segment_rf.segment_distinct_counts(rows).to(torch.int64).sum()
+                        total = int(MH.all_reduce(local, group, "sum"))
+                        present = int((data.degrees > 0).sum())
+                    mirrors, rf = total - present, float(total) / float(data.num_vertices)
+                else:
+                    mirrors, rf = -1, float("nan")
+                new_data = dataclasses.replace(
+                    data, edges=new_edges, mask=new_mask, k=k_new, mirrors=mirrors, replication_factor=rf
+                )
+                if verify:
+                    self._verify(data, new_edges, new_mask, k_old, k_new, group)
+                recheck_s = time.perf_counter() - t1
+
+            stats = dataclasses.replace(
+                prog.stats, oracle_checked=bool(verify), elapsed_s=elapsed, recheck_s=recheck_s
+            )
+            return new_data, stats
+
+    def rescale(self, data, k_new: int, *, verify: bool = False, recheck: bool = True):
+        """Plan + execute in one call (what an elastic controller uses)."""
+        return self.execute(data, self.plan(data, k_new), verify=verify, recheck=recheck)
+
+    # -------------------------------------------------------------- interns
+    @staticmethod
+    def _check_layout(data, n: int, k_old: int, group, parts, device) -> None:
+        """Raise unless every rank's rows hold its CEP chunks of ``n`` edges at
+        ``k_old``: per-row edge counts reduced on the device (m ints to the
+        host), then one all_reduce MIN of the verdict, so that every rank
+        raises together and none is left waiting at the next collective."""
         counts = (data.mask > 0).sum(dim=1).cpu().numpy()
         sizes_old = np.diff(cep.chunk_bounds(n, k_old))
         want = np.asarray([int(sizes_old[p]) if p < k_old else 0 for p in parts], dtype=counts.dtype)
@@ -307,93 +386,39 @@ class ElasticRescaler:
                 f"engine data is not CEP-chunked (rank {group.rank} of {group.size}: {where}); "
                 "range-copy rescaling only applies to pack_ordered layouts"
             )
-        if k_new == k_old:
-            # No-op plan: hand the buffers back untouched.
-            stats = RescaleStats(
-                k_old=k_old, k_new=k_new, num_edges=n, migrated_edges=0,
-                migrated_bytes=0, stay_edges=n, local_shift_edges=0,
-                copy_ops=0, oracle_checked=False, elapsed_s=0.0, recheck_s=0.0,
-                devices=group.size, processes=group.process_count,
-            )
-            return data, stats
 
-        prog = self._program(n, k_old, k_new, plan, group, device)
-        _synchronize(device)
-        t0 = time.perf_counter()
-        with self.tracer.span("rescale.migrate"):
-            # One kernel launch writes every slot but the receive ranges'
-            # edges, which the exchange fills (before or after it lands).
-            new_edges, new_mask = RM.migrate(data.edges, prog.table)
-            sent, received = MH.exchange(
-                group,
-                [(peer, data.edges[r, a:b], tag) for peer, r, a, b, tag in prog.sends],
-                [(peer, new_edges[r, a:b], tag) for peer, r, a, b, tag in prog.recvs],
-            )
-            _synchronize(device)
-        elapsed = time.perf_counter() - t0
-        m = self.metrics
-        m.histogram("rescale.migrate_s").observe(elapsed)
-        m.counter("rescale.migrated_bytes").inc(prog.stats.migrated_bytes)
-        m.counter("rescale.cross_device_bytes").inc(prog.stats.cross_device_bytes)
-        m.counter("rescale.cross_process_bytes").inc(prog.stats.cross_process_bytes)
-        m.counter("rescale.sent_bytes").inc(sent)  # this rank's share of the cross-rank traffic
-        m.counter("rescale.received_bytes").inc(received)
+    @staticmethod
+    def _verify(data, new_edges, new_mask, k_old: int, k_new: int, group) -> None:
+        """From-scratch host pack of the ORIGINAL ordered list at k_new, in the
+        sharded row order, compared byte for byte with the new rows — a
+        mis-routed move segment cannot fool this. Every rank reads every
+        rank's rows, so all agree. Raises on a mismatch."""
+        old_rows = [SH.partition_row(p, k_old, group.size) for p in range(k_old)]
+        old_edges = MH.host_read(data.edges, group)[old_rows]
+        old_valid = MH.host_read(data.mask, group)[old_rows] > 0
+        src_o, dst_o = old_edges[..., 0][old_valid], old_edges[..., 1][old_valid]
+        want_edges, want_mask = graph_engine.host_pack(src_o, dst_o, k_new)
+        rows = [SH.partition_row(p, k_new, group.size) for p in range(k_new)]
+        got_edges, got_mask = MH.host_read(new_edges, group), MH.host_read(new_mask, group)
+        pad = np.ones(got_edges.shape[0], dtype=bool)
+        pad[rows] = False
+        if not (
+            np.array_equal(want_edges, got_edges[rows])
+            and np.array_equal(want_mask, got_mask[rows])
+            and not got_edges[pad].any()
+            and not got_mask[pad].any()
+        ):
+            raise AssertionError("executed rescale does not match from-scratch pack")
 
-        # Metrics re-check: recompute quality numbers for the new k (never
-        # carried over from the old pack). A rescale does not change degrees,
-        # so the touched-vertex count comes from them.
-        t1 = time.perf_counter()
-        if recheck:
-            local = ops.chunk_vertex_counts_packed(new_edges, new_mask).sum()
-            total = int(MH.all_reduce(local, group, "sum"))
-            present = int((data.degrees > 0).sum())
-            mirrors, rf = total - present, float(total) / float(data.num_vertices)
-        else:
-            mirrors, rf = -1, float("nan")
-        new_data = dataclasses.replace(
-            data, edges=new_edges, mask=new_mask, k=k_new, mirrors=mirrors, replication_factor=rf
-        )
-
-        oracle_checked = False
-        if verify:
-            # From-scratch host pack of the ORIGINAL ordered list at k_new, in
-            # the sharded row order — a mis-routed move segment cannot fool
-            # this. Every rank reads every rank's rows, so all agree.
-            old_rows = [SH.partition_row(p, k_old, group.size) for p in range(k_old)]
-            old_edges = MH.host_read(data.edges, group)[old_rows]
-            old_valid = MH.host_read(data.mask, group)[old_rows] > 0
-            src_o, dst_o = old_edges[..., 0][old_valid], old_edges[..., 1][old_valid]
-            want_edges, want_mask = graph_engine.host_pack(src_o, dst_o, k_new)
-            rows = [SH.partition_row(p, k_new, group.size) for p in range(k_new)]
-            got_edges, got_mask = MH.host_read(new_edges, group), MH.host_read(new_mask, group)
-            pad = np.ones(got_edges.shape[0], dtype=bool)
-            pad[rows] = False
-            if not (
-                np.array_equal(want_edges, got_edges[rows])
-                and np.array_equal(want_mask, got_mask[rows])
-                and not got_edges[pad].any()
-                and not got_mask[pad].any()
-            ):
-                raise AssertionError("executed rescale does not match from-scratch pack")
-            oracle_checked = True
-        recheck_s = time.perf_counter() - t1
-
-        stats = dataclasses.replace(
-            prog.stats, oracle_checked=oracle_checked, elapsed_s=elapsed, recheck_s=recheck_s
-        )
-        return new_data, stats
-
-    def rescale(self, data, k_new: int, *, verify: bool = False, recheck: bool = True):
-        """Plan + execute in one call (what an elastic controller uses)."""
-        return self.execute(data, self.plan(data, k_new), verify=verify, recheck=recheck)
-
-    # -------------------------------------------------------------- interns
     def _program(self, n: int, k_old: int, k_new: int, plan: cep.ScalePlan, group, device) -> _Program:
         key = ("migrate", n, k_old, k_new, group, device)
         cached = self._programs.get(key)
         if cached is not None:
             return cached
+        with self.tracer.span("rescale.table_build"):
+            return self._programs.put(key, self._build_program(n, k_old, k_new, plan, group, device))
 
+    def _build_program(self, n: int, k_old: int, k_new: int, plan: cep.ScalePlan, group, device) -> _Program:
         g, me = group.size, group.rank
         bo = cep.chunk_bounds(n, k_old)
         bn = cep.chunk_bounds(n, k_new)
@@ -446,11 +471,10 @@ class ElasticRescaler:
         for d in range(me, k_new, g):  # this rank's partitions: d % g == me, at row d // g
             row_sizes[d // g] = sizes_new[d]
         table = RM.migrate_table(local, [(r, a, b) for _, r, a, b, _ in recvs], row_sizes, e_max_new, device)
-        prog = _Program(
+        return _Program(
             local=tuple(local),
             sends=tuple(sends),
             recvs=tuple(recvs),
             table=table,
             stats=stats,
         )
-        return self._programs.put(key, prog)

@@ -39,6 +39,7 @@ from ..kernels import ops
 from ..launch import multihost as MH
 from ..launch import sharding as SH
 from ..launch.mesh import GraphGroup, make_graph_group
+from ..obs import trace as OT
 
 __all__ = [
     "EngineData",
@@ -572,7 +573,8 @@ def _min_propagate(edges, mask, group, x0: torch.Tensor, step: float, max_iters:
     """Iterate x ← min(x, min over edges of x[neighbour] + step) until nothing
     changes or ``max_iters``; returns (x, iterations run). The combined
     candidates are the same on every rank, so every rank stops together.
-    Each iteration reads its stop flag on the host."""
+    Each iteration reads its stop flag on the host, in a span
+    ``query.sweep``."""
     big = 1e9
     e = edges.reshape(-1, 2).long()
     src, dst = e[:, 0], e[:, 1]
@@ -580,10 +582,11 @@ def _min_propagate(edges, mask, group, x0: torch.Tensor, step: float, max_iters:
     x, it, changed = x0, 0, True
     while changed and it < max_iters:
         cand = torch.full_like(x, big)
-        cand.scatter_reduce_(0, dst, torch.where(valid, x[src] + step, big), "amin")
-        cand.scatter_reduce_(0, src, torch.where(valid, x[dst] + step, big), "amin")
-        nx = torch.minimum(x, _combine(group, cand, "min"))
-        changed = bool((nx < x).any())
+        with OT.span("query.sweep"):  # ends at the stop flag's readback
+            cand.scatter_reduce_(0, dst, torch.where(valid, x[src] + step, big), "amin")
+            cand.scatter_reduce_(0, src, torch.where(valid, x[dst] + step, big), "amin")
+            nx = torch.minimum(x, _combine(group, cand, "min"))
+            changed = bool((nx < x).any())
         x, it = nx, it + 1
     return x, it
 
@@ -644,17 +647,23 @@ def query_program(
     """The pure-operand program for ``kind``. Call signatures: pagerank
     ``(edges, mask, degrees) → ranks``; sssp ``(edges, mask, source=0) →
     (dist, iters)``; wcc ``(edges, mask) → (lab, iters)``. Unknown kinds
-    raise ``ValueError``."""
+    raise ``ValueError``. Each call is a span ``query.<kind>``: PageRank's
+    ends once its sweeps are enqueued, SSSP's and WCC's at their last stop
+    flag's readback."""
     v, iterations, damping, max_iters = int(num_vertices), int(iterations), float(damping), int(max_iters)
+    name = f"query.{kind}"
     if kind == "pagerank":
         def program(edges, mask, degrees):
-            return _pagerank_operands(edges, mask, degrees, v, group, iterations, damping)
+            with OT.span(name):
+                return _pagerank_operands(edges, mask, degrees, v, group, iterations, damping)
     elif kind == "sssp":
         def program(edges, mask, source=0):
-            return _sssp_operands(edges, mask, v, group, int(source), max_iters)
+            with OT.span(name):
+                return _sssp_operands(edges, mask, v, group, int(source), max_iters)
     elif kind == "wcc":
         def program(edges, mask):
-            return _wcc_operands(edges, mask, v, group, max_iters)
+            with OT.span(name):
+                return _wcc_operands(edges, mask, v, group, max_iters)
     else:
         raise ValueError(f"unknown query kind {kind!r} (expected one of {QUERY_KINDS})")
     return program

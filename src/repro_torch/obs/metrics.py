@@ -2,7 +2,7 @@
 
 The registry is the runtime's numeric observability surface (DESIGN.md §13):
 per-phase latency histograms with exact p50/p90/p99 and byte counters for
-device traffic (``rescale.migrate_s``, ``rescale.migrated_bytes``).
+device traffic (``rescale.migrated_bytes``, ``rescale.sent_bytes``).
 
 Every metric snapshots to float64 values — a scalar for counters/gauges, a
 fixed-length bucket vector (+ count + sum) for histograms — so snapshots of

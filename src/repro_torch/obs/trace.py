@@ -17,7 +17,7 @@ A ``Tracer`` records nested host spans — ``with tracer.span("rescale.migrate")
   ``torch.profiler.record_function`` range for every span, so host spans line
   up with device kernels inside a ``torch.profiler`` capture.
 
-The phase of a span defaults to the dotted prefix of its name
+The phase of a span is the dotted prefix of its name
 (``"rescale.migrate"`` → phase ``"rescale"``).
 
 Components take ``tracer=None`` and fall back to the module-level default
@@ -70,12 +70,11 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("_tracer", "_name", "_phase", "_t0", "_annot")
+    __slots__ = ("_tracer", "_name", "_t0", "_annot")
 
-    def __init__(self, tracer: "Tracer", name: str, phase):
+    def __init__(self, tracer: "Tracer", name: str):
         self._tracer = tracer
         self._name = name
-        self._phase = phase
         self._annot = None
 
     def __enter__(self):
@@ -91,7 +90,7 @@ class _Span:
         t1 = time.perf_counter()
         if self._annot is not None:
             self._annot.__exit__(*exc)
-        self._tracer._record(self._name, self._phase, self._t0, t1)
+        self._tracer._record(self._name, self._t0, t1)
         return False
 
 
@@ -114,16 +113,16 @@ class Tracer:
         self.wall0 = time.time()
 
     # ------------------------------------------------------------- recording
-    def span(self, name: str, phase: str | None = None):
+    def span(self, name: str):
         """Context manager timing one span. THE hot call: a disabled tracer
         answers with the shared null span after one branch."""
         if not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, phase)
+        return _Span(self, name)
 
-    def _record(self, name: str, phase, t0: float, t1: float) -> None:
+    def _record(self, name: str, t0: float, t1: float) -> None:
         self.recorded += 1
-        self._ring.append((name, phase, t0, t1))
+        self._ring.append((name, t0, t1))
 
     # -------------------------------------------------------------- readout
     @property
@@ -139,12 +138,9 @@ class Tracer:
         return len(self._ring)
 
     def spans(self) -> list[SpanRecord]:
-        """Retained spans, oldest first, with phases resolved (a span's phase
-        defaults to the dotted prefix of its name)."""
-        return [
-            SpanRecord(name, phase if phase is not None else name.split(".", 1)[0], t0, t1)
-            for name, phase, t0, t1 in self._ring
-        ]
+        """Retained spans, oldest first (in order of their ends), each with
+        its phase, the dotted prefix of its name."""
+        return [SpanRecord(name, name.split(".", 1)[0], t0, t1) for name, t0, t1 in self._ring]
 
     def clear(self) -> None:
         self._ring.clear()
@@ -171,7 +167,7 @@ def set_tracer(tracer: Tracer | None) -> Tracer:
     return _tracer
 
 
-def span(name: str, phase: str | None = None):
-    """``get_tracer().span(...)`` — for module-level instrumentation points
+def span(name: str):
+    """``get_tracer().span(name)`` — for module-level instrumentation points
     that have no component to hang a tracer off."""
-    return _tracer.span(name, phase)
+    return _tracer.span(name)

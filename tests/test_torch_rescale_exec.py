@@ -151,11 +151,13 @@ def test_trace_span_and_metrics_recorded(ordered):
     tracer, registry = OT.Tracer(capacity=16), OM.MetricsRegistry()
     r = ElasticRescaler(tracer=tracer, metrics_registry=registry)
     _, stats = r.rescale(data, 12, recheck=False)
-    (rec,) = tracer.spans()
-    assert (rec.name, rec.phase) == ("rescale.migrate", "rescale") and rec.duration_s > 0
+    spans = tracer.spans()  # in the order they closed
+    assert [s.name for s in spans] == ["rescale.plan", "rescale.layout_check", "rescale.table_build",
+                                       "rescale.migrate", "rescale.recheck", "rescale.execute"]
+    assert {s.phase for s in spans} == {"rescale"} and all(s.duration_s > 0 for s in spans)
     snap = registry.snapshot()
     assert snap["rescale.migrated_bytes"] == stats.migrated_bytes
-    assert snap["rescale.migrate_s.count"] == 1.0
+    assert "rescale.migrate_s.count" not in snap
     assert snap["rescale.cross_device_bytes"] == 0.0
     assert ElasticRescaler().tracer is OT.get_tracer() and not OT.get_tracer().enabled
 
