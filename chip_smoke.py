@@ -12,10 +12,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    (the RMAT graph at ``--scale``, then ``geo_order`` on the host, 100-190 s
    at scale 20), which runs while phases 3-9 and paths 6 (b) and 8 (b) run
    here; the parent waits for it before slice 1;
-3. build the six CUDA kernels from ``src/repro_torch/kernels/csrc``
+3. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``,
    ``full_reorder``, the full rung's greedy, ``rescale_migrate``, a
-   rescale's migration),
+   rescale's migration, ``min_sweep``, a sweep of SSSP or WCC),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
    check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
    instantiation issues HGMMA;
@@ -113,9 +113,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    two scale-outs and two scale-ins with no flap pair, the pack
    bit-identical after every event, every ``segment_rf`` launch (two a span
    selection) exact and every greedy launch equal to the host mirror, each
-   kernel launched. ``--cards 4`` runs (c): (b) on one rank, then over 4
-   NCCL ranks, a card each, every rank's trajectory equal to the committed
-   one and each probe's answer to the one-rank run's;
+   kernel launched, ``min_sweep`` once a sweep of the warm-up's and the
+   probes' SSSP and WCC, each sweep exact. ``--cards 4`` runs (c): (b) on
+   one rank, then over 4 NCCL ranks, a card each, every rank's trajectory
+   equal to the committed one, each probe's answer to the one-rank run's,
+   and ``min_sweep`` once a sweep on every rank;
 8. path 4, the rungs with their selection on the card, at RMAT scale 14
    (8 regions, objective k in [4, 32]), with every launch count set to 0
    just before it: an engine in ``differential`` span and full mode and one
@@ -149,7 +151,9 @@ Phases, in order; any failure raises and the script exits nonzero:
    from-scratch byte check, re-checked RF equal to the oracle, PageRank /
    SSSP / WCC on the packs at k = 17 and k = 4; ``segment_rf`` must launch
    once per pack and re-checked rescale, ``rescale_migrate`` once per
-   rescale, and no other kernel;
+   rescale, ``min_sweep`` once per sweep of SSSP and WCC (each sweep tapped
+   and held after the path against the plain version on the same inputs:
+   nx bit for bit and the flags word), and no other kernel;
 11. slice 2, the entry points of the other three kernels, with every launch
    count set to 0 just before it: ``ops.chunked_spmv`` on the GEO-ordered
    edge list with weights 1/deg[src] and the k = 4 PageRank vector as x —
@@ -195,8 +199,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    pack right after it equal to the answers on the pack the decision was
    taken on and to those on the ``pack_slots`` oracle (PageRank within
    rtol 1e-4, SSSP and WCC exactly with the same iteration counts); the
-   probe times by kind and the modeled latencies are readings. No kernel
-   launches there either;
+   probe times by kind and the modeled latencies are readings. Of the
+   port's kernels only ``min_sweep`` launches there, once a sweep of the
+   loop's and those queries' SSSP and WCC, the latter's sweeps each held at
+   once against the plain version;
 13. the rungs' device programs alone against their host mirrors, with the
    counts set to 0 again: the span order and selection on the worst span of
    path 3's engine after path 9 (a)'s rescale; the greedy kernel on path 4's
@@ -217,8 +223,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    at RMAT-20, against their predicted counts), the bytes each rank sent and
    received against the plan's cross-rank bytes, and requires every rank's
    ``segment_rf`` launches (5 in (a), 2 in (b)), each exact against the plain
-   version on its rows, and one ``rescale_migrate`` launch a rescale on every
-   rank (3 in (a), 1 in (b)). Each app runs twice in each rank and the second run is
+   version on its rows, one ``rescale_migrate`` launch a rescale on every
+   rank (3 in (a), 1 in (b)), and one ``min_sweep`` launch a sweep of SSSP
+   and WCC, the first runs' each exact against the plain version on the
+   rank's rows. Each app runs twice in each rank and the second run is
    its time (the first also loads the ops' kernels in that process).
    ``--cards 4`` runs slice 1 and then only (a) and (c): g = 4 over NCCL, one
    card per rank;
@@ -284,7 +292,10 @@ Phases, in order; any failure raises and the script exits nonzero:
    faster is the library time), with the bytes the split kernel reads and
    the rate it reaches; ``rescale_migrate`` at slice 1's three plans on the
    packs they ran on, beside one ``index_select`` of every new slot's edge
-   over a cached gather map, each held byte-equal to the kernel's block.
+   over a cached gather map, each held byte-equal to the kernel's block;
+   ``min_sweep`` on the k = 16 pack, WCC's first sweep and a sweep from
+   SSSP's answer, on the card alone (a CUDA graph) and a wrapper call,
+   beside its byte bound (``min_sweep.sweep_bytes``).
 
 Output: phase lines, a ``{"stream": ..., "rungs": ...}`` JSON line of the
 stream paths' readings, a ``{"multirank": ...}`` line of path 5's, a
@@ -320,7 +331,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12  # HBM3 rate of an H100 SXM (NVIDIA data sheet)
 H100_FP32_OPS_PER_S = 67e12  # non-tensor-core f32 rate; the kernel's int compares run on the same ALUs
 H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
-KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder", "rescale_migrate")
+KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder", "rescale_migrate",
+           "min_sweep")
 PACK_KS = (4, 16, 64, 128)
 ROW_KS = (4, 8, 12, 16, 17, 64, 128)  # every k whose rows the main path counts
 PAGERANK_RTOL = 1e-4  # CUDA scatter-add uses atomics: f32 sums in varying order
@@ -658,6 +670,55 @@ def greedy_tap(FRK, tapped: list):
         return keys, steps, work
 
     return kernel, tap
+
+
+@contextlib.contextmanager
+def sweeps_tapped(MS, tapped: list, at_once: bool):
+    """Inside the block, ``MS.min_sweep`` (``graphs/engine.py`` looks it up at
+    each sweep) calls the kernel's wrapper unchanged and keeps each sweep on a
+    card. ``at_once``: each is held at once by ``sweep_exact`` (for packs that
+    change later); else device copies of x, nx and the flags are kept, with
+    the pack by reference, and ``sweep_exact`` holds them after the run (no
+    host read during it)."""
+    kernel = MS.min_sweep
+
+    def tap(edges, mask, x, step):
+        nx, flags = kernel(edges, mask, x, step)
+        if x.is_cuda:
+            rec = dict(edges=edges, mask=mask, x=x.clone(), step=step, nx=nx.clone(), flags=flags.clone())
+            tapped.append(sweep_exact(MS, rec) if at_once else rec)
+        return nx, flags
+
+    MS.min_sweep = tap
+    yield  # a failure inside ends the run: nothing to restore then
+    MS.min_sweep = kernel
+
+
+def sweep_exact(MS, rec: dict) -> dict:
+    """One tapped sweep against ``MS.min_sweep_torch`` on the same inputs: nx
+    bit for bit and the whole flags word (no out-of-range bit)."""
+    want, want_flag = MS.min_sweep_torch(rec["edges"], rec["mask"], rec["x"], rec["step"])
+    flags = int(rec["flags"])
+    exact = torch.equal(rec["nx"].view(torch.int32), want.view(torch.int32)) and flags == int(want_flag)
+    return dict(shape=list(rec["edges"].shape[:2]), step=rec["step"], changed=bool(flags & MS.CHANGED),
+                exact=bool(exact))
+
+
+def sweep_timing(MS, edges, mask, x, step: float) -> dict:
+    """``min_sweep`` on one pack from the state ``x``: on the card alone (a CUDA
+    graph: the x-to-nx copy, the flag's zeroing and the launch), a wrapper
+    call, the plain version, beside the byte bound; held exact first."""
+    rec = dict(edges=edges, mask=mask, x=x, step=step)
+    rec["nx"], rec["flags"] = MS.min_sweep(edges, mask, x, step)
+    held = sweep_exact(MS, rec)
+    check(held["exact"], f"min_sweep at {held['shape']}, step {step}: differs from the plain version")
+    slots, v = edges.shape[0] * edges.shape[1], x.numel()
+    bound_ms = MS.sweep_bytes(slots, v) / H100_BYTES_PER_S * 1e3
+    ms = graph_ms(lambda: MS.min_sweep(edges, mask, x, step), 20)
+    return dict(shape=[edges.shape[0], edges.shape[1], v], step=step, changed=held["changed"], ms=ms,
+                wrapper_ms=cuda_ms(lambda: MS.min_sweep(edges, mask, x, step), 20),
+                plain_ms=cuda_ms(lambda: MS.min_sweep_torch(edges, mask, x, step), 5), bound_ms=bound_ms,
+                bound_by="bytes", bound_share=bound_ms / ms, library_ms=None, bytes=MS.sweep_bytes(slots, v))
 
 
 def greedy_branch(FRK, nv: int, device=None) -> dict:
@@ -1161,7 +1222,7 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
 
     from repro_torch.elastic.rescale_exec import ElasticRescaler
     from repro_torch.graphs import engine as E
-    from repro_torch.kernels import rescale_migrate, segment_rf
+    from repro_torch.kernels import min_sweep, rescale_migrate, segment_rf
     from repro_torch.launch import multihost as MH
     from repro_torch.obs import metrics as OM
 
@@ -1211,9 +1272,14 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
     d = datas[cfg["apps_on"]]
     apps = dict(pagerank=lambda: E.pagerank(d, iterations=20), sssp=lambda: E.sssp(d, source=cfg["source"]),
                 wcc=lambda: E.wcc(d))
+    min_sweep.launches, sweeps = 0, []
     for app, fn in apps.items():  # twice: the first run in this process also loads the ops' kernels
-        _, meta[f"{app}_first_s"] = timed(fn)
+        with sweeps_tapped(min_sweep, sweeps, at_once=False):  # the first run's sweeps, held after the apps
+            _, meta[f"{app}_first_s"] = timed(fn)
         meta[f"{app}_result"], meta[f"{app}_s"] = timed(fn)
+    meta["min_sweep_launches"] = min_sweep.launches
+    meta["min_sweep_tapped"] = [sweep_exact(min_sweep, rec) for rec in sweeps]
+    del sweeps
     pr = meta.pop("pagerank_result")
     ss, meta["sssp_iterations"] = meta.pop("sssp_result")
     wc, meta["wcc_iterations"] = meta.pop("wcc_result")
@@ -1229,7 +1295,7 @@ def multirank_worker(run_dir: pathlib.Path) -> int:
     (run_dir / f"rank{r}.json").write_text(json.dumps(meta))
     print(f"rank {r}: apps {meta['pagerank_s']:.3f} / {meta['sssp_s']:.3f} / {meta['wcc_s']:.3f} s (second runs), "
           f"segment_rf launched {meta['segment_rf_launches']} times, rescale_migrate "
-          f"{meta['rescale_migrate_launches']}", flush=True)
+          f"{meta['rescale_migrate_launches']}, min_sweep {meta['min_sweep_launches']}", flush=True)
     return 0
 
 
@@ -1243,8 +1309,11 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
     the buffers, RF and mirrors by k, and slice 1's app results), PageRank
     within ``PAGERANK_RTOL`` of slice 1's and SSSP / WCC exactly, the
     cross-rank and cross-process edges against the plan, each rank's bytes
-    sent and received against the plan's cross-rank bytes, and every rank's
-    ``segment_rf`` launches exact against the plain version. Returns readings."""
+    sent and received against the plan's cross-rank bytes, every rank's
+    ``segment_rf`` launches exact against the plain version, and its
+    ``min_sweep`` launches equal to its sweeps (SSSP's and WCC's iterations,
+    each app run twice), those of the first runs each exact against the
+    plain version on the rank's rows. Returns readings."""
     from repro_torch.core import cep
     from repro_torch.launch import multihost as MH
     from repro_torch.launch import sharding as SH
@@ -1316,6 +1385,11 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
         check(meta["rescale_migrate_launches"] == len(steps["rescales"]),
               f"path 5 ({tag}) rank {i}: rescale_migrate launched {meta['rescale_migrate_launches']} times for "
               f"{len(steps['rescales'])} rescales, each held byte-equal to a from-scratch pack (verify=True)")
+        sweeps = meta["sssp_iterations"] + meta["wcc_iterations"]
+        check(meta["min_sweep_launches"] == 2 * sweeps and len(meta["min_sweep_tapped"]) == sweeps
+              and all(t["exact"] for t in meta["min_sweep_tapped"]),
+              f"path 5 ({tag}) rank {i}: min_sweep launched {meta['min_sweep_launches']} times for twice {sweeps} "
+              f"sweeps, {len(meta['min_sweep_tapped'])} tapped, exact {[t['exact'] for t in meta['min_sweep_tapped']]}")
         check(meta["snapshot_global"] == ranks[0][1]["snapshot_global"], f"path 5 ({tag}): global snapshots differ")
     glob = ranks[0][1]["snapshot_global"]
     total_cross = sum(ranks[0][1][name]["stats"]["cross_device_bytes"] for name, _, _ in steps["rescales"])
@@ -1325,7 +1399,9 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
     out = dict(ranks=g, processes=n_procs, backend=backend, devices=devices, wall_s=wall, rescales={}, apps={},
                segment_rf_launches=[m["segment_rf_launches"] for _, m in ranks],
                segment_rf_shapes=[[t["shape"] for t in m["segment_rf_tapped"]] for _, m in ranks],
-               rescale_migrate_launches=[m["rescale_migrate_launches"] for _, m in ranks])
+               rescale_migrate_launches=[m["rescale_migrate_launches"] for _, m in ranks],
+               min_sweep_launches=[m["min_sweep_launches"] for _, m in ranks],
+               min_sweep_shapes=sorted({tuple(t["shape"]) for _, m in ranks for t in m["min_sweep_tapped"]}))
     for name, _, _ in steps["rescales"]:
         st = ranks[0][1][name]["stats"]
         ms = [m[name]["stats"]["elapsed_s"] * 1e3 for _, m in ranks]
@@ -1351,7 +1427,8 @@ def multirank_path(tag: str, backend: str, n_procs: int, devs_per_proc: int, dev
                     for app in ("pagerank", "sssp", "wcc"))
         + f"; PageRank max rel {out['pagerank_rel']:.3e} "
         f"to slice 1's, SSSP and WCC equal; segment_rf launches by rank {out['segment_rf_launches']}, each exact; "
-        f"rescale_migrate launches by rank {out['rescale_migrate_launches']}, one a rescale")
+        f"rescale_migrate launches by rank {out['rescale_migrate_launches']}, one a rescale; min_sweep launches by "
+        f"rank {out['min_sweep_launches']}, one a sweep, the first runs' each exact at {out['min_sweep_shapes']}")
     return out
 
 
@@ -2210,10 +2287,13 @@ def serve_full_width(eng, phases: dict):
     executed scale event, 16 -> 20; the pack bit-identical after it (the
     loop's own check); each query kind on the live pack at the decision
     (before the rescale) and right after it equal within ``PAGERANK_RTOL`` /
-    exactly, and after it equal to the same query on ``oracle_pack()``.
+    exactly, and after it equal to the same query on ``oracle_pack()``;
+    ``min_sweep`` launched once a sweep of the loop's and those queries' SSSP
+    and WCC, those queries' sweeps each exact against the plain version.
     Returns readings and the worst span's host slots for the twin phase."""
     from repro_torch.elastic.autoscale import AutoscaleConfig, AutoscalePolicy
     from repro_torch.elastic.controller import ElasticController
+    from repro_torch.kernels import min_sweep as MS
     from repro_torch.launch import serve as LS
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.stream.workload import OpenLoopWorkload
@@ -2231,12 +2311,25 @@ def serve_full_width(eng, phases: dict):
     source = int(torch.argmax(eng.data.degrees))  # SSSP from the hub: the graph does not change here
     answers: dict = {}
     decide = policy.decide
+    on_card, launches0 = eng.data.edges.is_cuda, MS.launches
+    loop_sweeps, tapped = [0], []
+    query = qe.query
+
+    def counted(kind, source=0):  # the loop's own queries (the warm-up and the probes): their sweeps counted
+        out, elapsed = query(kind, source)
+        loop_sweeps[0] += 0 if kind == "pagerank" else out[1]
+        return out, elapsed
+
+    qe.query = counted
+
+    def answered(data, group):  # each query kind once, every sweep tapped and held at once
+        with sweeps_tapped(MS, tapped, at_once=True):
+            return serve_answers(data, group, qe, source)
 
     def decide_then_answer(**kw):
         decision = decide(**kw)
         if decision is not None and "before" not in answers:  # the pack the decision was taken on
-            answers["before"], phases["serve_a_before_s"] = synced_s(lambda: serve_answers(eng.data, eng.data.group,
-                                                                                           qe, source))
+            answers["before"], phases["serve_a_before_s"] = synced_s(lambda: answered(eng.data, eng.data.group))
         return decision
 
     policy.decide = decide_then_answer
@@ -2248,8 +2341,7 @@ def serve_full_width(eng, phases: dict):
         loop.tick()
         if loop.scale_events and decision_tick is None:
             decision_tick = loop.tick_index - 1
-            answers["after"], phases["serve_a_after_s"] = synced_s(lambda: serve_answers(eng.data, eng.data.group,
-                                                                                         qe, source))
+            answers["after"], phases["serve_a_after_s"] = synced_s(lambda: answered(eng.data, eng.data.group))
     loop.drain()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2274,8 +2366,15 @@ def serve_full_width(eng, phases: dict):
         f"({rescale['moved_bytes']} B; the CEP plan would move {rs.cep_plan_edges}), compact moves {compact_bytes} B "
         f"(path 9 (a): executed by the autoscaler)")
     oracle = eng.oracle_pack()
-    answers["oracle"], phases["serve_a_oracle_s"] = synced_s(lambda: serve_answers(oracle, None, qe, source))
+    answers["oracle"], phases["serve_a_oracle_s"] = synced_s(lambda: answered(oracle, None))
     del oracle
+    qe.query = query
+    sweeps = loop_sweeps[0] + sum(a["sssp"][1] + a["wcc"][1] for a in answers.values())
+    launched = MS.launches - launches0
+    check(launched == (sweeps if on_card else 0) and len(tapped) == launched - loop_sweeps[0] * on_card
+          and all(x["exact"] for x in tapped),
+          f"path 9 (a): min_sweep launched {launched} times for {sweeps} sweeps ({loop_sweeps[0]} in the loop's "
+          f"queries); {len(tapped)} tapped, exact {[x['exact'] for x in tapped]}")
     across = same_answers(answers["after"], answers["before"], "path 9 (a): the query after the rescale against "
                                                                 "the one at the decision")
     to_oracle = same_answers(answers["after"], answers["oracle"], "path 9 (a): the query after the rescale against "
@@ -2286,13 +2385,16 @@ def serve_full_width(eng, phases: dict):
                 latency_p99_s=s["latency_p99_s"], slo_violations=s["slo_violations"], k_path=s["k_path"],
                 reason=ev.reason, decision_tick=decision_tick, rescale=rescale, wall_s=wall, probes=probes,
                 across_rescale=across, to_oracle=to_oracle, sssp_source=source, evaluations=len(policy.log),
-                held=sorted({sig.held_by for sig in policy.log if sig.held_by}))
+                held=sorted({sig.held_by for sig in policy.log if sig.held_by}),
+                min_sweep=dict(launches=launched, loop_sweeps=loop_sweeps[0], tapped=len(tapped),
+                               shapes=sorted({tuple(x["shape"]) for x in tapped})))
     log(f"path 9 (a): {s['served']} queries served over {s['ticks']} ticks in {wall:.3f} s, shed {s['shed']}, "
         f"modeled latency p50 {s['latency_p50_s']:.2f} s p99 {s['latency_p99_s']:.2f} s, k {s['k_path']} at tick "
         f"{decision_tick} ({ev.reason}); bit-identical after the rescale; PageRank / SSSP / WCC after it equal to the answers at "
         f"the decision (PageRank max rel {across['pagerank_rel']:.3e}) and to the oracle pack's (max rel "
         f"{to_oracle['pagerank_rel']:.3e}), SSSP from vertex {source} {across['sssp_iters']} and WCC "
-        f"{across['wcc_iters']} iterations; "
+        f"{across['wcc_iters']} iterations; min_sweep {launched} launches, one a sweep ({loop_sweeps[0]} in "
+        f"the loop's queries), the other {len(tapped)} each exact; "
         + "; ".join(f"{kind} probe median {p['median_ms']:.3f} ms, max {p['max_ms']:.3f} ms ({p['count']})"
                     for kind, p in sorted(probes.items())))
     o = eng.orderer
@@ -2309,11 +2411,14 @@ def serve_scenario(dev, phases: dict, segment_rf) -> dict:
     flap pair, the pack bit-identical after every event (the loop's own
     checks), every ``segment_rf`` launch (two a span selection) exact against
     its plain version and every greedy launch equal to the host mirror, each
-    kernel launched. Returns readings, with the probe answers."""
+    kernel launched, ``min_sweep`` once a sweep of the warm-up's and the
+    probes' SSSP and WCC, each sweep exact against the plain version.
+    Returns readings, with the probe answers."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_serve_harness as SH
 
     from repro_torch.kernels import full_reorder as FRK
+    from repro_torch.kernels import min_sweep as MS
     from repro_torch.kernels import span_reorder as SRK
 
     kernel, tapped = SRK.segment_distinct_counts, []
@@ -2327,16 +2432,19 @@ def serve_scenario(dev, phases: dict, segment_rf) -> dict:
     greedy_tapped: list = []
     greedy_kernel, FRK.greedy_keys = greedy_tap(FRK, greedy_tapped)
     sc = SH.SCENARIO
+    launches0, sweep_checks = MS.launches, []
     t0 = time.perf_counter()
     loop, ctl, policy, eng = SH.build_loop(SH.build_ordered(**sc), device=dev, **sc)
     probes = SH.record_probes(loop)
-    loop.queries.warm()
-    del probes[:]  # the warm-up's answers are not probes of the run
-    phases["serve_b_setup_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    SH.run_scenario(loop, **sc)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with sweeps_tapped(MS, sweep_checks, at_once=True):  # the packs change from tick to tick: held at once
+        loop.queries.warm()
+        warm_sweeps = sum(iters for _, kind, _, _, iters in probes if kind != "pagerank")
+        del probes[:]  # the warm-up's answers are not probes of the run
+        phases["serve_b_setup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        SH.run_scenario(loop, **sc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     SRK.segment_distinct_counts = kernel
     FRK.greedy_keys = greedy_kernel
     traj = SH.trajectory(loop, policy)
@@ -2358,6 +2466,12 @@ def serve_scenario(dev, phases: dict, segment_rf) -> dict:
         check(torch.equal(counts, want_counts), f"path 9 (b): segment_rf launch {i} differs from the plain version")
     greedy = [greedy_against_mirror(FRK, rec) for rec in greedy_tapped]
     check(all(x["exact"] for x in greedy), f"path 9 (b): a greedy launch differs from the host mirror: {greedy}")
+    sweeps = warm_sweeps + sum(iters for _, kind, _, _, iters in probes if kind != "pagerank")
+    sweeps_on_card = sweeps if dev.type == "cuda" else 0
+    check(MS.launches - launches0 == len(sweep_checks) == sweeps_on_card
+          and all(x["exact"] for x in sweep_checks),
+          f"path 9 (b): min_sweep launched {MS.launches - launches0} times ({len(sweep_checks)} tapped) for "
+          f"{sweeps} sweeps, exact {[x['exact'] for x in sweep_checks]}")
     s = loop.summary()
     times = probe_times(loop.records)
     read = dict(ticks=s["ticks"], served=s["served"], shed=s["shed"], slo_violations=s["slo_violations"],
@@ -2365,7 +2479,7 @@ def serve_scenario(dev, phases: dict, segment_rf) -> dict:
                 scale_outs=s["scale_outs"], scale_ins=s["scale_ins"], flap_pairs=traj["flap_pairs"],
                 moved_edges=s["moved_edges_per_decision"], wall_s=wall, checks=len(ingests) + len(loop.scale_events),
                 rung_counts=dict(eng.rung_counts), selections=selections,
-                launches=dict(segment_rf=len(tapped), full_reorder=len(greedy_tapped)),
+                launches=dict(segment_rf=len(tapped), full_reorder=len(greedy_tapped), min_sweep=sweeps_on_card),
                 greedy_steps=[x["steps"] for x in greedy], probes=times,
                 rescale_ms=[st.elapsed_s * 1e3 for st in ctl.rescale_stats])
     log(f"path 9 (b): {s['ticks']} ticks ({sc['days']} days of {sc['day_ticks']}, {sc['ingest_batch']} updates a "
@@ -2373,7 +2487,8 @@ def serve_scenario(dev, phases: dict, segment_rf) -> dict:
         f"p50 {s['latency_p50_s']:.2f} s p99 {s['latency_p99_s']:.2f} s, k {s['k_path']} ({s['scale_outs']} out, "
         f"{s['scale_ins']} in, no flap), equal to the committed trajectory; {read['checks']} bit-identity checks; "
         f"rungs {read['rung_counts']}; segment_rf {len(tapped)} launches, each exact; greedy {len(greedy_tapped)}, "
-        f"each equal to the host mirror; rescales {min(read['rescale_ms']):.3f}-{max(read['rescale_ms']):.3f} ms; "
+        f"each equal to the host mirror; min_sweep {sweeps_on_card}, one a sweep, each exact; rescales "
+        f"{min(read['rescale_ms']):.3f}-{max(read['rescale_ms']):.3f} ms; "
         + "; ".join(f"{kind} probe median {p['median_ms']:.3f} ms, max {p['max_ms']:.3f} ms ({p['count']})"
                     for kind, p in sorted(times.items())))
     read["segment_rf_max_abs_err"] = max_err
@@ -2387,7 +2502,8 @@ def serve_ranks(tag: str, backend: str, devices: list, one_rank: dict) -> dict:
     trajectory equal to the committed one, the ranks' event logs equal, and
     each probe's answer equal to the one-rank run's ``one_rank`` (PageRank
     within ``PAGERANK_RTOL``, SSSP and WCC exact with the same iterations);
-    each rank launched ``segment_rf`` and the greedy kernel."""
+    each rank launched ``segment_rf`` and the greedy kernel, and
+    ``min_sweep`` once a sweep of its warm-up's and probes' SSSP and WCC."""
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_serve_harness as SH
 
@@ -2401,8 +2517,9 @@ def serve_ranks(tag: str, backend: str, devices: list, one_rank: dict) -> dict:
     for r in ranks:
         check(r["trajectory"] == want,
               f"path 9 ({tag}) rank {r['rank']}: the trajectory differs from the committed one")
-        check(r["launches"]["segment_rf"] > 0 and r["launches"]["full_reorder"] > 0,
-              f"path 9 ({tag}) rank {r['rank']}: launches {r['launches']}")
+        check(r["launches"]["segment_rf"] > 0 and r["launches"]["full_reorder"] > 0
+              and r["launches"]["min_sweep"] == r["sweeps"] > 0,
+              f"path 9 ({tag}) rank {r['rank']}: launches {r['launches']} for {r['sweeps']} sweeps")
         check(len(r["probes"]) == len(one_rank["answers"]), f"path 9 ({tag}) rank {r['rank']}: probe count")
         for (tick, kind, source, iters), answer, (t1, k1, s1, a1, i1) in zip(r["probes"], r["answers"],
                                                                              one_rank["answers"]):
@@ -3147,8 +3264,8 @@ def lmrank_worker(run_dir: pathlib.Path) -> int:
     through ``launch_local_cluster``): (a) and (b) on the rank's device,
     with the port's kernel counters read at the end. Writes ``rank{r}.json``."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import (decode_attention, edge_spmv, flash_attention, full_reorder, rescale_migrate,
-                                     segment_rf)
+    from repro_torch.kernels import (decode_attention, edge_spmv, flash_attention, full_reorder, min_sweep,
+                                     rescale_migrate, segment_rf)
     from repro_torch.launch import multihost as MH
 
     group = MH.initialize_from_env(timeout_s=LMRANK_GROUP_TIMEOUT_S)
@@ -3156,7 +3273,8 @@ def lmrank_worker(run_dir: pathlib.Path) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 stays float32, as in path 10 (b)
     torch.backends.cudnn.allow_tf32 = False
     kernels = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": flash_attention,
-               "decode_attention": decode_attention, "full_reorder": full_reorder, "rescale_migrate": rescale_migrate}
+               "decode_attention": decode_attention, "full_reorder": full_reorder, "rescale_migrate": rescale_migrate,
+               "min_sweep": min_sweep}
     out = {"rank": group.rank, "sp": lmrank_sp(group, dev), "dp": lmrank_dp(group, dev)}
     out["launches"] = {name: m.launches for name, m in kernels.items()}
     (run_dir / f"rank{group.rank}.json").write_text(json.dumps(out))
@@ -3308,6 +3426,7 @@ def main() -> int:
     from repro_torch.graphs import engine as E
     from repro_torch.kernels import _build, edge_spmv, ops, segment_rf
     from repro_torch.kernels import decode_attention as dec
+    from repro_torch.kernels import min_sweep as MS
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import full_reorder as FRK
     from repro_torch.kernels import rescale_migrate as RM
@@ -3316,7 +3435,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions' f32 products stay f32
     torch.backends.cudnn.allow_tf32 = False
     modules = {"segment_rf": segment_rf, "edge_spmv": edge_spmv, "flash_attention": fa, "decode_attention": dec,
-               "full_reorder": FRK, "rescale_migrate": RM}
+               "full_reorder": FRK, "rescale_migrate": RM, "min_sweep": MS}
 
     def reset_launches() -> None:
         for m in modules.values():
@@ -3346,7 +3465,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder", "rescale_migrate")  # what paths 5-7 launch
+    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder", "rescale_migrate", "min_sweep")  # paths 5-7
     lib_paths = _build.build_all(built)
     for name in built:
         _build.load(name)
@@ -3609,7 +3728,8 @@ def main() -> int:
         serve_b_launches = read_launches()
         check(serve_b_launches == {**dict.fromkeys(KERNELS, 0), **serve_b["launches"]},
               f"path 9 (b) launched {serve_b_launches}, expected segment_rf {serve_b['launches']['segment_rf']} times, the "
-              f"greedy kernel {serve_b['launches']['full_reorder']} times, and nothing else")
+              f"greedy kernel {serve_b['launches']['full_reorder']} times, min_sweep {serve_b['launches']['min_sweep']} "
+              f"times, and nothing else")
         log(f"path 9 (b): {phases['serve_b_s']:.3f} s, launches {serve_b_launches}")
         report["segment_rf"]["max_abs_err"] = max(report["segment_rf"]["max_abs_err"],
                                                   serve_b.pop("segment_rf_max_abs_err"))
@@ -3722,12 +3842,14 @@ def main() -> int:
     torch.cuda.synchronize()
     phases["pagerank_x2_s"] = time.perf_counter() - t0
     source = int(torch.argmax(d4.degrees))
-    t0 = time.perf_counter()
-    (ss17, it_s17), (ss4, it_s4) = E.sssp(d17, source=source), E.sssp(d4, source=source)
-    phases["sssp_x2_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    (wc17, it_w17), (wc4, it_w4) = E.wcc(d17), E.wcc(d4)
-    phases["wcc_x2_s"] = time.perf_counter() - t0
+    slice1_sweeps: list = []  # every sweep's x, nx and flags, held after the path (the packs stay as they are)
+    with sweeps_tapped(MS, slice1_sweeps, at_once=False):
+        t0 = time.perf_counter()
+        (ss17, it_s17), (ss4, it_s4) = E.sssp(d17, source=source), E.sssp(d4, source=source)
+        phases["sssp_x2_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (wc17, it_w17), (wc4, it_w4) = E.wcc(d17), E.wcc(d4)
+        phases["wcc_x2_s"] = time.perf_counter() - t0
     torch.cuda.synchronize()
     phases["main_path_s"] = time.perf_counter() - t_main
     slice1_launches = read_launches()
@@ -3756,12 +3878,21 @@ def main() -> int:
     log(f"apps: PageRank k=17 vs k=4 max rel diff {pr_rel:.3e} (limit {PAGERANK_RTOL}); "
         f"SSSP from {source}: {it_s4} iterations, {reached} reached, equal; "
         f"WCC: {it_w4} iterations, {components} components, equal")
+    slice1_sweeps = [sweep_exact(MS, rec) for rec in slice1_sweeps]
+    sweeps = it_s17 + it_s4 + it_w17 + it_w4
     check(slice1_launches == {**dict.fromkeys(KERNELS, 0), "segment_rf": expected_launches,
-                              "rescale_migrate": expected_migrations},
+                              "rescale_migrate": expected_migrations, "min_sweep": sweeps},
           f"slice 1 launched {slice1_launches}, expected segment_rf {expected_launches} times, rescale_migrate "
-          f"{expected_migrations} and nothing else")
+          f"{expected_migrations}, min_sweep {sweeps} and nothing else")
+    check(len(slice1_sweeps) == sweeps and all(x["exact"] for x in slice1_sweeps),
+          f"slice 1: {len(slice1_sweeps)} min_sweep launches tapped for {sweeps} sweeps, exact "
+          f"{[x['exact'] for x in slice1_sweeps]}")
+    report["min_sweep"]["slice1_sweeps"] = {f"{kind}_k{k}": it for kind, k, it in (
+        ("sssp", 17, it_s17), ("sssp", 4, it_s4), ("wcc", 17, it_w17), ("wcc", 4, it_w4))}
     log(f"slice 1 launches: {slice1_launches} (segment_rf = {len(packs)} packs + {len(rescales)} re-checked rescales; "
-        f"rescale_migrate one a rescale)")
+        f"rescale_migrate one a rescale; min_sweep one a sweep of SSSP and WCC at k = 17 and 4, each equal to the "
+        f"plain version bit for bit: x, nx and the flags)")
+    del slice1_sweeps
 
     # Path 5's inputs: the slice-1 ordered list once, for every rank to load
     # (the GEO order is not computed again per rank), and slice 1's results.
@@ -3966,15 +4097,18 @@ def main() -> int:
 
     # --------------------------- path 9 (a): serving at full width on path 3's engine
     # Run here, where path 3 hands its engine over (no second orderer build or
-    # upload); the rescale 16->20 is the autoscaler's. No kernel of the port
-    # launches: the queries and the compact are torch ops.
+    # upload); the rescale 16->20 is the autoscaler's. Of the port's kernels
+    # only min_sweep launches (SSSP's and WCC's sweeps); PageRank and the
+    # compact are torch ops.
     reset_launches()
     t0 = time.perf_counter()
     serve_a, stream_read["span"] = serve_full_width(stream_eng, phases)
     torch.cuda.synchronize()
     phases["serve_a_s"] = time.perf_counter() - t0
     serve_a_launches = read_launches()
-    check(serve_a_launches == dict.fromkeys(KERNELS, 0), f"path 9 (a) launched {serve_a_launches}, expected none")
+    check(serve_a_launches == {**dict.fromkeys(KERNELS, 0), "min_sweep": serve_a["min_sweep"]["launches"]},
+          f"path 9 (a) launched {serve_a_launches}, expected min_sweep {serve_a['min_sweep']['launches']} times "
+          f"and nothing else")
     log(f"path 9 (a): {phases['serve_a_s']:.3f} s, launches {serve_a_launches}")
     del stream_eng
     gc.collect()
@@ -4065,6 +4199,18 @@ def main() -> int:
             f"byte-equal to the plain version and to index_select")
         torch.cuda.empty_cache()
     report["rescale_migrate"].update(migrate_times[0], other_shapes=migrate_times[1:])
+
+    # min_sweep on slice 1's k = 16 pack: WCC's first sweep (nearly every
+    # slot lowers its higher endpoint: the most atomics) and a sweep from
+    # SSSP's answer (nothing lowers: the loads and gathers alone).
+    sweep_times = [sweep_timing(MS, packs[16].edges, packs[16].mask, torch.arange(v, dtype=torch.float32, device=dev),
+                                0.0),
+                   sweep_timing(MS, packs[16].edges, packs[16].mask, ss4, 1.0)]
+    for what, st in zip(("WCC's first sweep", "a sweep from SSSP's answer"), sweep_times):
+        log(f"min_sweep {what} {st['shape']} (changed {st['changed']}): {st['ms']:.4f} ms on the card alone, "
+            f"{st['wrapper_ms']:.4f} ms a wrapper call, plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+            f"({st['bytes']} B; {st['bound_share']:.3f} of it); exact against the plain version")
+    report["min_sweep"].update(sweep_times[0], other_shapes=sweep_times[1:])
 
     spmv_times = []
     for name, (bounds, starts, size) in spmv_calls.items():
@@ -4187,6 +4333,7 @@ def main() -> int:
         "decode_attention": "src/repro/kernels/decode_attention.py:76",
         "full_reorder": "src/repro/kernels/full_reorder.py:231",
         "rescale_migrate": "src/repro/elastic/rescale_exec.py:470",  # the jitted migrate: no pl.pallas_call
+        "min_sweep": "src/repro/graphs/engine.py:434",  # SSSP's and WCC's .at[].min sweeps: no pl.pallas_call
     }
     launches = {**{k: n_ for k, n_ in slice1_launches.items() if n_}, **{k: n_ for k, n_ in slice2_launches.items() if n_},
                 "full_reorder": rungs_launches["full_reorder"]}
@@ -4194,9 +4341,11 @@ def main() -> int:
                "rungs": rungs_launches, "twins": twin_launches}
     for tag, read in multirank_read.items():  # path 5: each rank's own launches, counted from 0 in its process
         by_path[f"multirank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
-                                       "rescale_migrate": sum(read["rescale_migrate_launches"])}
+                                       "rescale_migrate": sum(read["rescale_migrate_launches"]),
+                                       "min_sweep": sum(read["min_sweep_launches"])}
         report["segment_rf"][f"multirank_{tag}_by_rank"] = read["segment_rf_launches"]
         report["rescale_migrate"][f"multirank_{tag}_by_rank"] = read["rescale_migrate_launches"]
+        report["min_sweep"][f"multirank_{tag}_by_rank"] = read["min_sweep_launches"]
     for tag, read in streamrank_read.items():  # path 6: the same
         by_path[f"streamrank_{tag}"] = {**dict.fromkeys(KERNELS, 0), "segment_rf": sum(read["segment_rf_launches"]),
                                         "full_reorder": sum(read["greedy_launches"])}
@@ -4238,7 +4387,7 @@ def main() -> int:
             "replaces": sources[name],
             "launches": launches[name],
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
-            "parity": "exact" if name in ("segment_rf", "full_reorder", "rescale_migrate") else "allclose",
+            "parity": "exact" if name in ("segment_rf", "full_reorder", "rescale_migrate", "min_sweep") else "allclose",
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4250,7 +4399,8 @@ def main() -> int:
             **({"merge_launches": slice2_merges} if name == "decode_attention" else {}),
             **{key: r[key] for key in ("wrapper_ms", "partials_ms", "sdpa_3d_mask_ms", "sdpa_4d_bool_mask_ms",
                                        "kernel_bytes", "kernel_tb_per_s", "steps", "us_per_step", "enqueue_ms",
-                                       "order_ms", "mirror_ms", "walked", "wide", "plan", "execute_ms") if key in r},
+                                       "order_ms", "mirror_ms", "walked", "wide", "plan", "execute_ms", "bytes",
+                                       "slice1_sweeps") if key in r},
             **({"bound_share": r["bound_share"]} if "bound_share" in r else {}),
             **({"other_shapes": r["other_shapes"]} if "other_shapes" in r else {}),
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),

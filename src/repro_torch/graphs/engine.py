@@ -15,15 +15,16 @@ rank holds its row block on its own device, and the streaming engine keeps its
 live pack in it (``pack_slots_sharded`` / ``pack_slots_sharded_stream``). A
 world of one is the degenerate case, bit-identical to ``EngineData``.
 
-The GAS apps keep the JAX package's update rules, written as ``index_add_``
-and ``scatter_reduce_(…, "amin")`` on the data's device; over a sharded pack
-each rank scatters its own rows and an ``all_reduce`` (SUM for PageRank, MIN
-for SSSP and WCC) combines them, as the reference's ``psum``/``pmin``. Float
-sums are taken in another order than XLA's (CUDA scatter-add uses atomics),
-so PageRank agrees with the JAX package to a tolerance; SSSP and WCC take
-minima of integer-valued floats and agree exactly. ``query_program`` serves
-the same three apps on the pack's operands (launch/serve.py), through the
-same bodies.
+The GAS apps keep the JAX package's update rules: PageRank as ``index_add_``
+on the data's device, SSSP's and WCC's min-sweeps as the CUDA kernel
+``kernels/min_sweep.py`` on a card (``scatter_reduce_(…, "amin")`` on the
+CPU); over a sharded pack each rank scatters its own rows and an
+``all_reduce`` (SUM for PageRank, MIN for SSSP and WCC) combines them, as
+the reference's ``psum``/``pmin``. Float sums are taken in another order
+than XLA's (CUDA scatter-add uses atomics), so PageRank agrees with the JAX
+package to a tolerance; SSSP and WCC take minima of integer-valued floats
+and agree exactly. ``query_program`` serves the same three apps on the
+pack's operands (launch/serve.py), through the same bodies.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import torch
 from ..compat import resolve_device
 from ..core import cep
 from ..core.graph import Graph
-from ..kernels import ops
+from ..kernels import min_sweep, ops
 from ..launch import multihost as MH
 from ..launch import sharding as SH
 from ..launch.mesh import GraphGroup, make_graph_group
@@ -571,22 +572,20 @@ def _pagerank_operands(edges, mask, degrees, v: int, group, iterations: int, dam
 
 def _min_propagate(edges, mask, group, x0: torch.Tensor, step: float, max_iters: int):
     """Iterate x ← min(x, min over edges of x[neighbour] + step) until nothing
-    changes or ``max_iters``; returns (x, iterations run). The combined
-    candidates are the same on every rank, so every rank stops together.
-    Each iteration reads its stop flag on the host, in a span
-    ``query.sweep``."""
-    big = 1e9
-    e = edges.reshape(-1, 2).long()
-    src, dst = e[:, 0], e[:, 1]
-    valid = mask.reshape(-1) > 0
+    changes or ``max_iters``; returns (x, iterations run). Each sweep is one
+    ``min_sweep`` (the CUDA kernel on a card, its plain version on the CPU).
+    Over a ``group`` each rank lowers x with its own rows and the ranks'
+    results take their minimum, which is the same on every rank, so every
+    rank stops together. Each iteration reads its stop flag on the host, in a
+    span ``query.sweep``."""
     x, it, changed = x0, 0, True
     while changed and it < max_iters:
-        cand = torch.full_like(x, big)
         with OT.span("query.sweep"):  # ends at the stop flag's readback
-            cand.scatter_reduce_(0, dst, torch.where(valid, x[src] + step, big), "amin")
-            cand.scatter_reduce_(0, src, torch.where(valid, x[dst] + step, big), "amin")
-            nx = torch.minimum(x, _combine(group, cand, "min"))
-            changed = bool((nx < x).any())
+            nx, flags = min_sweep.min_sweep(edges, mask, x, step)
+            changed = min_sweep.changed(flags)
+            if group is not None:
+                nx = _combine(group, nx, "min")
+                changed = bool((nx < x).any())
         x, it = nx, it + 1
     return x, it
 

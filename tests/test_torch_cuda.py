@@ -1,6 +1,6 @@
 """The port on the GPU: each CUDA kernel (segment_rf, edge_spmv,
-flash_attention, decode_attention, full_reorder, rescale_migrate) against
-its plain version, the paths on
+flash_attention, decode_attention, full_reorder, rescale_migrate, min_sweep)
+against its plain version, the paths on
 the card against the same paths on the CPU, and the streaming engine's device
 programs against their host mirrors and the ``pack_slots`` oracle, and the
 multi-rank layout on the one card (ranks over gloo, one rank over NCCL), and
@@ -27,7 +27,7 @@ from repro_torch.core.graph import rmat_graph
 from repro_torch.elastic.rescale_exec import ElasticRescaler
 from repro_torch.graphs import engine as E
 from repro_torch.kernels import decode_attention as dec
-from repro_torch.kernels import edge_spmv, ops, ref, rescale_migrate, segment_rf
+from repro_torch.kernels import edge_spmv, min_sweep, ops, ref, rescale_migrate, segment_rf
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import multihost as MH
 from repro_torch.launch import sharding as SH
@@ -243,6 +243,142 @@ def test_apps_on_cuda_match_cpu(cuda, ordered):
     for app in (E.sssp, E.wcc):
         (x_gpu, it_gpu), (x_cpu, it_cpu) = app(gpu), app(cpu)
         assert it_gpu == it_cpu and torch.equal(x_gpu.cpu(), x_cpu)
+
+
+# ----------------------------------------------------------------- min_sweep
+def _hub_graph(spokes: int, seed: int):
+    """A star of ``spokes`` leaves around vertex 0 over a sparse random
+    graph: one hub whose slots lie side by side in the order."""
+    rng = np.random.default_rng(seed)
+    v = spokes + 1
+    a, b = rng.integers(1, v, size=(2, 4 * spokes))
+    lo, hi = np.minimum(a, b), np.maximum(a, b)
+    pairs = np.unique(np.stack([np.concatenate([np.zeros(spokes, np.int64), lo[lo != hi]]),
+                                np.concatenate([np.arange(1, v), hi[lo != hi]])], 1), axis=0)
+    return pairs[:, 0].astype(np.int32), pairs[:, 1].astype(np.int32), v
+
+
+def _sweep_case(case: str, k: int, layout: str):
+    """``(edges, mask, V)`` on the CPU: an RMAT graph with hubs or a star,
+    GEO-ordered and packed at k; ``stream``: a tenth of the slots masked off
+    and every masked-off slot holding real ids."""
+    if case == "star":
+        src, dst, v = _hub_graph(5_000, seed=k)
+    else:
+        scale = int(case[4:])
+        g = rmat_graph(scale, 16, seed=scale)
+        order = ordering.geo_order(g, seed=0)
+        src, dst, v = g.src[order], g.dst[order], g.num_vertices
+    data = E.pack_ordered(src, dst, v, k, device="cpu")
+    edges, mask = data.edges, data.mask
+    rng = np.random.default_rng(k)
+    if layout == "stream":
+        edges, mask = edges.clone(), mask.clone()
+        mask[torch.from_numpy(rng.random(tuple(mask.shape)) < 0.1)] = 0.0
+        off = mask <= 0
+        edges[off] = torch.from_numpy(rng.integers(0, v, size=(int(off.sum()), 2)).astype(np.int32))
+    return edges, mask, v
+
+
+def _off_boundary(t: torch.Tensor, elements: int) -> torch.Tensor:
+    buf = torch.zeros(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+MIN_SWEEP_CASES = [("rmat12", 4, "pack"), ("rmat12", 17, "pack"), ("rmat12", 128, "stream"),
+                   ("rmat14", 1, "pack"), ("rmat14", 16, "stream"), ("rmat14", 64, "pack"),
+                   ("star", 4, "pack"), ("star", 7, "pack"), ("star", 16, "stream")]
+
+
+@pytest.mark.parametrize("case,k,layout", MIN_SWEEP_CASES)
+@pytest.mark.parametrize("kind,step", [("sssp", 1.0), ("wcc", 0.0)])
+def test_min_sweep_kernel_equals_plain_version(cuda, case, k, layout, kind, step):
+    """Every sweep of a whole SSSP (from the highest-degree vertex) or WCC
+    query through the kernel against the plain version on the CPU from the
+    same state: x, nx and the stop flag exactly equal, so the answers and the
+    sweep counts are too."""
+    edges, mask, v = _sweep_case(case, k, layout)
+    g_edges, g_mask = edges.to(cuda), mask.to(cuda)
+    if kind == "sssp":
+        deg = torch.bincount(edges[mask > 0].reshape(-1).long(), minlength=v)
+        x = torch.full((v,), 1e9)
+        x[int(deg.argmax())] = 0.0
+    else:
+        x = torch.arange(v, dtype=torch.float32)
+    sweeps, changed = 0, True
+    while changed and sweeps < 64:
+        before = min_sweep.launches
+        nx, flags = min_sweep.min_sweep(g_edges, g_mask, x.to(cuda), step)
+        changed = min_sweep.changed(flags)
+        assert min_sweep.launches == before + 1
+        want, want_flags = min_sweep.min_sweep_torch(edges, mask, x, step)
+        assert torch.equal(nx.cpu().view(torch.int32), want.view(torch.int32)), (sweeps, (nx.cpu() != want).sum())
+        assert changed == bool(want_flags)
+        x, sweeps = want, sweeps + 1
+    assert 1 < sweeps < 64
+    (got, got_it), (want, want_it) = (
+        E.sssp(d, source=int(x.argmin())) if kind == "sssp" else E.wcc(d)
+        for d in (E.engine_data_from_arrays(edges.numpy(), mask.numpy(), np.zeros(v, np.float32), num_vertices=v,
+                                            k=edges.shape[0], mirrors=0, replication_factor=0.0,
+                                            num_edges=int((mask > 0).sum()), device=dev) for dev in (cuda, "cpu")))
+    assert got_it == want_it and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["sssp", "wcc", "sssp-program"])
+def test_min_sweep_query_on_cuda_launches_once_a_sweep(cuda, ordered, kind):
+    """A query on a card's pack goes through the kernel: ``launches`` rises
+    by its sweep count, and the answer equals the CPU pack's."""
+    g, s, d = ordered
+    assert 5 in s or 5 in d  # the source has an edge
+    gpu = E.pack_ordered(s, d, g.num_vertices, 8)
+    cpu = E.pack_ordered(s, d, g.num_vertices, 8, device="cpu")
+    before = min_sweep.launches
+    if kind == "sssp-program":
+        program = E.query_program("sssp", num_vertices=g.num_vertices)
+        (x, it), (want, want_it) = program(gpu.edges, gpu.mask, 5), program(cpu.edges, cpu.mask, 5)
+    else:
+        app = (lambda d: E.sssp(d, source=5)) if kind == "sssp" else E.wcc
+        (x, it), (want, want_it) = app(gpu), app(cpu)
+    assert it > 1 and min_sweep.launches == before + it
+    assert it == want_it and torch.equal(x.cpu(), want)
+
+
+@pytest.mark.parametrize("bad", ["edges-int64", "mask-on-cpu", "x-float64", "mask-shape", "edges-non-contiguous",
+                                 "x-non-contiguous", "edges-off-boundary", "mask-off-boundary", "id-past-V"])
+def test_min_sweep_wrapper_rejects_bad_input(cuda, bad):
+    edges = torch.randint(0, 50, (4, 100, 2), dtype=torch.int32, device=cuda)
+    mask = torch.ones((4, 100), device=cuda)
+    x = torch.arange(50, dtype=torch.float32, device=cuda)
+    if bad == "edges-int64":
+        edges = edges.long()
+    elif bad == "mask-on-cpu":
+        mask = mask.cpu()
+    elif bad == "x-float64":
+        x = x.double()
+    elif bad == "mask-shape":
+        mask = mask[:, :99].contiguous()
+    elif bad == "edges-non-contiguous":
+        edges = edges.transpose(0, 1)
+    elif bad == "x-non-contiguous":
+        x = torch.arange(100, dtype=torch.float32, device=cuda)[::2]
+    elif bad == "edges-off-boundary":  # 8 bytes off: the 16-byte loads need the boundary
+        edges = _off_boundary(edges, 2)
+    elif bad == "mask-off-boundary":
+        mask = _off_boundary(mask, 1)
+    else:  # a slot with mask 1 names vertex 50 of 50: the kernel skips it and the flag says so
+        edges[2, 7, 1] = 50
+        before = min_sweep.launches
+        nx, flags = min_sweep.min_sweep(edges, mask, x, 0.0)
+        assert min_sweep.launches == before + 1
+        with pytest.raises(ValueError, match="outside"):
+            min_sweep.changed(flags)
+        return
+    before = min_sweep.launches
+    with pytest.raises((TypeError, ValueError)):
+        min_sweep.min_sweep(edges, mask, x, 1.0)
+    assert min_sweep.launches == before
 
 
 # ----------------------------------------------------------------- edge_spmv

@@ -18,6 +18,7 @@ from repro.launch import mesh as J_MM
 from repro_torch import compat
 from repro_torch.core.graph import rmat_graph
 from repro_torch.graphs import engine as E
+from repro_torch.kernels import _build, min_sweep
 
 GRAPHS = [(8, 6), (6, 4)]  # (scale, edge_factor)
 KS = [1, 4, 8, 16, 17]
@@ -157,3 +158,94 @@ def test_entry_points_default_to_cuda(ordered):
     assert compat.resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         compat.resolve_device("meta")
+
+
+# ------------------------------------------------------------------ min-sweep
+def _numpy_sweep(edges, mask, x, step):
+    """One sweep by numpy: min(x, scatter-min of the neighbours' x + step) over
+    the slots with mask > 0, each edge both ways; and whether x fell anywhere."""
+    e = edges.reshape(-1, 2)
+    valid = mask.reshape(-1) > 0
+    u, v = e[valid, 0], e[valid, 1]
+    cand = np.full_like(x, np.inf)
+    np.minimum.at(cand, v, x[u] + np.float32(step))
+    np.minimum.at(cand, u, x[v] + np.float32(step))
+    nx = np.minimum(x, cand)
+    return nx, bool((nx < x).any())
+
+
+def _sweep_state(kind, state, v, rng):
+    if state == "start":
+        if kind == "sssp":
+            x = np.full(v, 1e9, dtype=np.float32)
+            x[0] = 0.0
+            return x
+        return np.arange(v, dtype=np.float32)
+    if state == "midway":  # a frontier of known distances, the rest unreached; labels partly merged
+        if kind == "sssp":
+            x = np.full(v, 1e9, dtype=np.float32)
+            known = rng.random(v) < 0.3
+            x[known] = rng.integers(0, 6, size=int(known.sum()))
+            return x
+        return np.minimum(np.arange(v), rng.integers(0, v, size=v)).astype(np.float32)
+    return rng.permutation(v).astype(np.float32)  # "shuffled": every label or distance distinct
+
+
+@pytest.mark.parametrize("k", [4, 17])
+@pytest.mark.parametrize("state", ["start", "midway", "shuffled"])
+@pytest.mark.parametrize("kind,step", [("sssp", 1.0), ("wcc", 0.0)])
+def test_min_sweep_on_cpu_equals_numpy_sweep(ordered, monkeypatch, kind, step, state, k):
+    """A sweep through the wrapper from a chosen state, on a pack whose
+    masked-off slots hold real ids (as a stream pack's), equals numpy's, and
+    so does its stop flag; a CPU tensor never reaches the kernel."""
+    g, _, _ = ordered
+    rng = np.random.default_rng(k + len(state))
+    data = E.pack_ordered(g.src, g.dst, g.num_vertices, k, device="cpu")
+    edges, mask = data.edges.clone(), data.mask.clone()
+    drop = torch.from_numpy(rng.random(tuple(mask.shape)) < 0.1)
+    mask[drop] = 0.0
+    off = mask <= 0
+    edges[off] = torch.from_numpy(rng.integers(0, g.num_vertices, size=(int(off.sum()), 2)).astype(np.int32))
+    x = _sweep_state(kind, state, g.num_vertices, rng)
+
+    def no_kernel(name):
+        raise AssertionError(f"a CPU sweep loaded the {name} kernel")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = min_sweep.launches
+    nx, flags = min_sweep.min_sweep(edges, mask, torch.from_numpy(x), step)
+    want, want_changed = _numpy_sweep(edges.numpy(), mask.numpy(), x, step)
+    assert min_sweep.launches == before
+    assert nx.dtype == torch.float32 and np.array_equal(nx.numpy(), want)
+    assert min_sweep.changed(flags) == want_changed
+
+
+def test_min_sweep_queries_on_cpu_never_launch(ordered, monkeypatch):
+    """Whole SSSP and WCC queries on a CPU pack run the plain version:
+    ``launches`` does not move and no kernel is built or loaded."""
+    g, _, _ = ordered
+    data = E.pack_ordered(g.src, g.dst, g.num_vertices, 8, device="cpu")
+
+    def no_kernel(name):
+        raise AssertionError(f"a CPU query loaded the {name} kernel")
+    monkeypatch.setattr(_build, "load", no_kernel)
+    before = min_sweep.launches
+    (_, it_s), (_, it_w) = E.sssp(data, source=int(g.src[0])), E.wcc(data)
+    assert it_s > 1 and it_w > 1 and min_sweep.launches == before
+
+
+@pytest.mark.parametrize("bad", ["edges-int64", "mask-shape", "x-2d", "x-non-contiguous", "edges-not-pairs"])
+def test_min_sweep_wrapper_rejects_bad_input_on_cpu(bad):
+    edges = torch.zeros((2, 5, 2), dtype=torch.int32)
+    mask, x = torch.ones((2, 5)), torch.arange(8, dtype=torch.float32)
+    if bad == "edges-int64":
+        edges = edges.long()
+    elif bad == "mask-shape":
+        mask = torch.ones((2, 4))
+    elif bad == "x-2d":
+        x = x.reshape(2, 4)
+    elif bad == "x-non-contiguous":
+        x = torch.arange(16, dtype=torch.float32)[::2]
+    else:
+        edges = torch.zeros((2, 5, 3), dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        min_sweep.min_sweep(edges, mask, x, 1.0)

@@ -155,7 +155,7 @@ def record_probes(loop) -> list:
 def worker(args) -> None:
     import torch
 
-    from repro_torch.kernels import full_reorder, segment_rf
+    from repro_torch.kernels import full_reorder, min_sweep, segment_rf
     from repro_torch.launch import multihost as MH
 
     group = MH.initialize_from_env(timeout_s=GROUP_TIMEOUT_S)
@@ -164,6 +164,7 @@ def worker(args) -> None:
     loop, ctl, policy, eng = build_loop(build_ordered(**scenario), group=group, **scenario)
     probes = record_probes(loop)
     loop.queries.warm()
+    warm_sweeps = sum(iters for _, kind, _, _, iters in probes if kind != "pagerank")
     del probes[:]  # the warm-up's answers are not probes of the run
     run_scenario(loop, **scenario)
     if group.torch_device.type == "cuda":
@@ -175,7 +176,9 @@ def worker(args) -> None:
                   trajectory=trajectory(loop, policy), wall_s=wall,
                   probes=[[tick, kind, source, iters] for tick, kind, source, _, iters in probes],
                   probe_s=[r.measured_s for r in loop.records if r.measured_s > 0],
-                  launches=dict(segment_rf=segment_rf.launches, full_reorder=full_reorder.launches),
+                  launches=dict(segment_rf=segment_rf.launches, full_reorder=full_reorder.launches,
+                                min_sweep=min_sweep.launches),
+                  sweeps=warm_sweeps + sum(iters for _, kind, _, _, iters in probes if kind != "pagerank"),
                   events_jsonl=mask_p99(ctl.events_jsonl(drop_timings=True)))
     (out / f"rank{group.rank}.json").write_text(json.dumps(record))
     np.savez(out / f"rank{group.rank}.npz", *[answer for _, _, _, answer, _ in probes])
