@@ -1,4 +1,4 @@
-"""The benchmark of ``repro_torch``, the PyTorch and CUDA port, on one H100 a cell.
+"""The benchmark of ``repro_torch``, the PyTorch and CUDA port, on H100 cards.
 
 ``BENCHMARK.json`` at the repository's root lists the cells. A run is
 
@@ -14,11 +14,16 @@ that ``BENCHMARK.json`` gives it:
 * ``mixes/<traffic>.json``: a traffic mix's parameters and the name of the
   driver in ``drivers/`` that plays it;
 * ``metrics/<metric>.py``: one reader a metric, ``read(run) -> float | None``;
-* ``generators/<module>.py``: makes a configuration's input from the seed.
+* ``generators/<module>.py``: makes a configuration's input from the seed;
+* ``systems/<name>.py``: a system under test that a configuration names
+  with ``"system"`` (``sharded``: the port's layout over ranks); one that
+  names none runs ``sut.py``'s, the port on one card.
+
+A cell with ``chips`` above 1 runs one process a card (``ranks.py``).
 
 The yardstick (the generator, the frozen CEP arithmetic in ``cep.py``, the
 plain reference in ``reference.py``, the byte formulas and peaks in
 ``peaks.py``, the reading of the device trace in ``devtrace.py``) imports
-nothing of the port. ``sut.py`` is the one module that does: it holds the
-system under test.
+nothing of the port. ``sut.py`` and the modules of ``systems/`` are the
+only ones that do: they hold the systems under test.
 """

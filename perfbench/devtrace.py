@@ -40,7 +40,7 @@ class DeviceTrace:
         windows = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == WINDOW]
         if not windows:
             raise ValueError(f"the trace has no {WINDOW!r} range")
-        w = windows[0]
+        w = self.window = windows[0]
         self.w0, self.w1 = float(w["ts"]), float(w["ts"]) + float(w["dur"])
         self.host_thread = (w.get("pid"), w.get("tid"))
         self.device = [e for e in events if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"
@@ -68,6 +68,12 @@ class DeviceTrace:
             events.append({"ph": "X", "cat": cat, "name": name, "ts": e.start_ns() / 1e3,
                            "dur": e.duration_ns() / 1e3, "pid": 0, "tid": e.start_thread_id()})
         return cls(events)
+
+    def device_events(self) -> list:
+        """The window's range and the device's work, without the host's
+        events: what another rank sends rank 0, from which ``DeviceTrace``
+        makes this trace again (its idle gaps then carry no host label)."""
+        return [self.window] + self.device
 
     @property
     def window_s(self) -> float:

@@ -11,19 +11,29 @@ A mix (``mixes/<name>.json``) gives:
 * ``queries``: ``rate_per_s`` (0 for none), the kinds' weights ``mix`` and
   the programs' parameters. Arrivals are one Poisson process at that rate,
   each query's kind drawn by the weights.
-* ``schedule_seed``: draws the first k, the walk of k_new and the arrivals,
-  so that every run offers the same work in the same order (a walk or an
-  arrival order of its own would change the work from seed to seed more
-  than the program changes between two runs). The run's seed draws each
-  SSSP source (a vertex with an edge) and the packs the check compares slot
-  by slot.
+* ``schedule_seed``: draws the first k, the walk of k_new, the arrivals and
+  the set of SSSP sources (vertices with an edge), one for each SSSP query
+  due in the window, so that every run offers the same work (a walk, an
+  arrival order or a set of sources of its own would change the work from
+  seed to seed more than the program changes between two runs). The run's
+  seed draws the order in which the SSSP queries take those sources and the
+  packs the check compares slot by slot.
 
 One worker serves the timeline in due order, first in, first out: a query
 never overlaps a scale event. An item is timed from when it was due (a back
 to back event: from its start) to its result on the card after a
-synchronize. Every item due in the window is served, the last ones after
+synchronize. The worker waits for an item's due time by sleeping to within
+``SPIN_S`` of it and polling the clock for the rest: a sleep wakes late by a
+part of a millisecond that varies with the host's load, and that lateness
+would count in every query that found the worker idle. Every item due in the window is served, the last ones after
 its close; one that cannot start within ``GRACE_S`` of the close counts as
 failed.
+
+Over several ranks (``ranks.World``) every rank plays the same timeline, and
+each item ends in ``World.settle``: rank 0's clock decides when the back to
+back events stop and when the grace has run out, and an item ends when
+every rank has its result. There an item that raises ends the run: the
+other ranks would wait for it in their collectives.
 """
 from __future__ import annotations
 
@@ -34,7 +44,10 @@ import time
 import numpy as np
 import torch
 
+from perfbench import ranks
+
 GRACE_S = 60.0  # how long past the window's close an item due in it may start
+SPIN_S = 0.005  # the last stretch of a wait for a due time, spent polling the clock
 
 
 def rng(seed: int, stream: int) -> np.random.Generator:
@@ -69,6 +82,22 @@ def first_k(k_range, mix: dict) -> int:
     return int(rng(mix["schedule_seed"], 3).integers(int(k_range[0]), int(k_range[1]) + 1))
 
 
+def wait_until(deadline: float) -> None:
+    """Returns once ``time.perf_counter()`` reads ``deadline``: sleeps to
+    within ``SPIN_S`` of it, then polls."""
+    left = deadline - time.perf_counter()
+    if left > SPIN_S:
+        time.sleep(left - SPIN_S)
+    while time.perf_counter() < deadline:
+        pass
+
+
+def sssp_sources(mix: dict, present: np.ndarray, n: int) -> np.ndarray:
+    """The schedule's ``n`` SSSP sources, drawn from ``present`` (the vertices
+    with an edge) by the schedule's seed."""
+    return present[rng(mix["schedule_seed"], 2).integers(present.shape[0], size=n)]
+
+
 def query_schedule(mix: dict, seconds: float) -> list:
     """``[(due_s, kind), ...]`` of the queries due in ``[0, seconds)``."""
     params = mix["queries"]
@@ -90,16 +119,18 @@ class Player:
     """Serves a mix on a ``sut.System`` and records every item."""
 
     def __init__(self, system, mix: dict, config: dict, *, seed: int, present: np.ndarray, annotate: bool,
-                 hold: int = 3, hold_among: int = 32):
+                 hold: int = 3, hold_among: int = 32, world: ranks.World | None = None):
         self.system, self.mix = system, mix
+        self.world = world or ranks.World()
         self.k_range = config["k_range"]
         self.steps = ScaleSteps(mix["scale_events"], self.k_range, mix["schedule_seed"])
         self.sources = rng(seed, 2)
+        self.pool = []  # the window's SSSP sources, in the order they are taken
         self.present = present
         self.annotate = annotate
         picks = rng(seed, 4).choice(hold_among, size=min(hold, hold_among), replace=False)
         self.hold_at = set(int(i) for i in picks)  # rescale events whose pack is kept for the check
-        self.held = []  # (edges, mask, k asked for) of the packs kept for the check
+        self.held = []  # (data, k asked for) of the packs kept for the check
         self.rescales = 0
         self.k = None  # the k the last successful scale event asked for
         self.warm_items = []  # the warm-up's items: one that failed fails the run
@@ -112,6 +143,10 @@ class Player:
             torch.cuda.synchronize(self.system.device)
 
     def source(self) -> int:
+        """The next SSSP source: in the window, the next of the schedule's
+        sources; in the warm-up, a vertex with an edge drawn by the run's seed."""
+        if self.pool:
+            return self.pool.pop()
         return int(self.present[int(self.sources.integers(self.present.shape[0]))])
 
     # ------------------------------------------------------------ one item
@@ -122,14 +157,14 @@ class Player:
                 new, stats = self.system.rescale(data, k_new)
                 self._sync()
         except Exception as exc:  # a failed event counts against `failed`, and the run goes on
+            if self.world.ranked:
+                raise
             event.update(ok=False, error=f"{type(exc).__name__}: {exc}")
             return data
-        _, _, k_out, mirrors = self.system.view(new)
-        event.update(ok=True, k_out=int(k_out), mirrors=int(mirrors), migrate_s=stats.elapsed_s,
-                     recheck_s=stats.recheck_s)
+        event.update(ok=True, k_out=int(new.k), mirrors=int(new.mirrors), migrate_s=stats.elapsed_s,
+                     recheck_s=stats.recheck_s, cross_bytes=stats.cross_device_bytes)
         if self.rescales in self.hold_at:
-            edges, mask, _, _ = self.system.view(new)
-            self.held.append((edges, mask, int(k_new)))
+            self.held.append((new, int(k_new)))
         self.rescales += 1
         self.k = int(k_new)
         return new
@@ -142,6 +177,8 @@ class Player:
                 answer, sweeps = self.system.query(kind, data, source)
                 self._sync()
         except Exception as exc:
+            if self.world.ranked:
+                raise
             event.update(ok=False, error=f"{type(exc).__name__}: {exc}")
             return
         event.update(ok=True, answer=answer, sweeps=sweeps)
@@ -175,10 +212,12 @@ class Player:
         with self._span("perfbench.window"):
             t0 = time.perf_counter()
             if every is None:
-                while time.perf_counter() - t0 < seconds:
+                done = False
+                while not done:
                     ev = {"due": time.perf_counter() - t0}
                     ev["start"] = ev["due"]
                     data = self.rescale(data, self.steps.next(self.k), ev)
+                    done = self.world.settle(time.perf_counter() - t0 >= seconds)
                     ev["end"] = time.perf_counter() - t0
                     events.append(ev)
             else:
@@ -186,20 +225,23 @@ class Player:
                 items += [(every * j, "scale") for j in range(1, int(math.ceil(seconds / every)))
                           if every * j < seconds]
                 items.sort(key=lambda it: (it[0], it[1] != "scale"))
+                pool = sssp_sources(self.mix, self.present, sum(1 for _, kind in items if kind == "sssp"))
+                self.pool = [int(v) for v in self.sources.permutation(pool)]
+                late = False  # rank 0's clock read past the grace as the last item ended: none starts now
                 for due, kind in items:
                     ev = {"due": due}
-                    wait = due - (time.perf_counter() - t0)
-                    if wait > 0:
+                    if due > time.perf_counter() - t0:
                         with self._span("perfbench.wait"):
-                            time.sleep(wait)
+                            wait_until(t0 + due)
                         lateness.append(time.perf_counter() - t0 - due)
                     ev["start"] = time.perf_counter() - t0
-                    if ev["start"] > seconds + GRACE_S:
+                    if late:
                         ev.update(kind=kind, ok=False, error="not started within the grace after the close")
                     elif kind == "scale":
                         data = self.rescale(data, self.steps.next(self.k), ev)
                     else:
                         self.query(data, kind, ev)
+                    late = self.world.settle(late or time.perf_counter() - t0 > seconds + GRACE_S)
                     ev["end"] = time.perf_counter() - t0
                     events.append(ev)
             window_s = time.perf_counter() - t0

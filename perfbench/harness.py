@@ -1,14 +1,19 @@
 """One run of one cell: set-up, warm-up, the measured window, the check, the metrics.
 
 Set-up makes the configuration's graph on the device, copies
-the ordered list to the host, and hands it to the program: ``pack_ordered``
-at the first k of the mix's schedule, then the mix's warm-up. ``setup_s`` runs
+the ordered list to the host, and hands it to the system under test that the
+configuration names (``spec.system``): its pack at the first k of the mix's
+schedule, then the mix's warm-up. ``setup_s`` runs
 from the process's start to the window's first item. The device's memory
 peak is counted from the pack on (the generator's own buffers are the
 benchmark's) to the window's close. With ``trace`` the window runs under
 ``torch.profiler`` and the run reports the per-layer metrics; without, the
 end-to-end ones. The check runs after the window, once the peak is read and
-the program is dropped, on the answers the window kept.
+the program's state is freed, on the answers and packs the window kept.
+
+Over several ranks (``ranks.World``, one process a device) every rank runs
+this same function in step, as ``ranks.py`` sets out; rank 0 alone judges,
+reads the metrics and returns a result.
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ import types
 
 import torch
 
-from . import devtrace, judge, spec as specmod
+from . import devtrace, judge, ranks, spec as specmod
 
 HELD_PACKS = 3  # rescale events whose pack the check compares slot by slot, besides the last
 
@@ -44,22 +49,22 @@ def _traced(play, dev: torch.device, stamps: list):
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_start: float,
         spec: specmod.Spec | None = None, config: dict | None = None, mix: dict | None = None, system_cls=None,
-        log=None) -> dict:
-    """The result of one run, as ``run.py`` prints it."""
-    if system_cls is None:
-        from . import sut
-
-        system_cls = sut.System
+        world: ranks.World | None = None, log=None) -> dict | None:
+    """The result of one run, as ``run.py`` prints it; ``None`` on a rank
+    other than 0."""
+    world = world or ranks.World()
     spec = spec or specmod.Spec()
     cell = spec.cell(cell_name)
     config = config or spec.config(cell["config"])
     mix = mix or specmod.mix(cell["traffic"])
+    system_cls = system_cls or specmod.system(config)
     driver = specmod.load_module("drivers", mix["driver"])
     generator = specmod.load_module("generators", config["generator"]["module"])
     dev = torch.device(device)
 
     stamps = [("start", time.perf_counter())]
     src, dst, num_vertices, present = generator.generate(config["generator"], dev)
+    world.same_graph(src, dst, num_vertices)
     _sync(dev)
     stamps.append(("generate", time.perf_counter()))
     src_h, dst_h = src.cpu().numpy(), dst.cpu().numpy()
@@ -69,38 +74,57 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_sta
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
 
-    system = system_cls(num_vertices=num_vertices, device=dev, queries=mix["queries"], traced=trace)
+    system = system_cls(num_vertices=num_vertices, device=dev, queries=mix["queries"], traced=trace, world=world)
     k0 = driver.first_k(config["k_range"], mix)
     data = system.pack(src_h, dst_h, k0)
     stamps.append(("pack", time.perf_counter()))
-    player = driver.Player(system, mix, config, seed=seed, present=present, annotate=trace, hold=HELD_PACKS)
+    player = driver.Player(system, mix, config, seed=seed, present=present, annotate=trace, hold=HELD_PACKS,
+                           world=world)
     data = player.warm(data, k0)
     counters_before = system.cache_counters()
+    sent_before = system.sent_bytes() if world.ranked else 0
 
+    world.barrier()
     setup_s = time.perf_counter() - t_start
     stamps.append(("warm-up", time.perf_counter()))
+    world.phase("window")
     if trace:
         (data, events, lateness, window_s), dtrace = _traced(lambda: player.play(data, seconds), dev, stamps)
     else:
         (data, events, lateness, window_s), dtrace = player.play(data, seconds), None
         stamps.append(("window", time.perf_counter()))
+    world.phase("check")
     counters_after = system.cache_counters()
-    memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    edges, mask, _, _ = system.view(data)
-    packs = player.held + [(edges, mask, player.k)]
+    memory_peak = world.max_int(torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0)
+    traces = world.gather(None if dtrace is None else dtrace.device_events())
+    sent = world.sum_int(system.sent_bytes() - sent_before) if world.ranked else 0
+    held = player.held + [(data, player.k)]
     warm_items = player.warm_items
-    system.close()
-    del system, player, data, edges, mask
+    del player, data
 
-    checks = judge.judge(src_h, dst_h, num_vertices, events, packs, mix["queries"], config["limits"], dev)
+    def packs():
+        """``(edges, mask, k asked for)`` of each pack the check compares,
+        whole: over ranks, gathered from every rank one at a time."""
+        for d, k in held:
+            edges, mask, _, _ = system.view(d)
+            yield edges, mask, k
+
+    system.close()  # frees the program's state; its packs stay readable
+    if world.rank != 0:
+        for _ in packs():
+            pass
+        return None
+    checks = judge.judge(src_h, dst_h, num_vertices, events, packs(), mix["queries"], config["limits"], dev)
+    del system, held
     stamps.append(("check", time.perf_counter()))
     for e in events:
         e.pop("answer", None)  # the answers are judged: free them before the metrics
-    del packs
     failed = sum(1 for e in events + warm_items if not e.get("ok"))
 
+    traces = None if dtrace is None else [dtrace] + [devtrace.DeviceTrace(t) for t in traces[1:]]
     facts = types.SimpleNamespace(events=events, setup_s=setup_s, counters_before=counters_before,
-                                  counters_after=counters_after, trace=dtrace, num_edges=int(src_h.shape[0]))
+                                  counters_after=counters_after, trace=dtrace, traces=traces,
+                                  num_edges=int(src_h.shape[0]))
     metrics = {}
     for m in spec.metrics_of(cell_name, trace):
         value = specmod.reader(m["name"])(facts)
@@ -123,6 +147,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_sta
         for kind in sorted({e["kind"] for e in events if e.get("ok")}):
             ms = [1e3 * (e["end"] - e["start"]) for e in events if e["kind"] == kind and e.get("ok")]
             log(f"{kind}: {len(ms)} served, service mean {sum(ms) / len(ms):.3f} ms, max {max(ms):.3f} ms")
+        if world.ranked:
+            planned = sum(e["cross_bytes"] for e in events if e.get("kind") == "rescale" and e.get("ok"))
+            log(f"ranks: {world.size}; the window's rescales sent {sent} B between ranks, the plans "
+                f"{planned} B; memory peak over the ranks {memory_peak} B")
         for e in warm_items + events:
             if not e.get("ok"):
                 log(f"failed {e.get('kind')} at {e.get('start', 0):.3f} s: {e.get('error')}")
@@ -136,7 +164,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_sta
         "device": {
             "platform": "gpu" if dev.type == "cuda" else dev.type,
             "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
-            "count": int(cell["chips"]),
+            "count": world.size,
             "memory_peak_bytes": int(memory_peak),
         },
     }

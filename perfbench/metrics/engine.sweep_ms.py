@@ -1,7 +1,7 @@
 """Median over the window's SSSP and WCC queries' sweeps of the span
-``query.sweep``: two ``scatter_reduce`` amin, the combine and the stop
-flag's readback, so it holds the sweep's device time (program span, from
-the device trace's host ranges)."""
+``query.sweep``: one ``min_sweep`` launch and the stop flag's readback, so
+it holds the sweep's device time (program span, from the device trace's
+host ranges)."""
 from perfbench import spans
 
 

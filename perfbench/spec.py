@@ -1,7 +1,10 @@
 """``BENCHMARK.json`` and the files it names, found by name.
 
-A later change adds a configuration, a mix, a metric or a generator as new
-files and entries; nothing here names one of them.
+A later change adds a configuration, a mix, a metric, a generator or a
+system under test as new files and entries; nothing here names one of them.
+``sut.py`` and the modules of ``systems/`` are the only modules of the
+benchmark that import the port: ``system`` loads one of them when a run
+asks for it, never at import.
 """
 from __future__ import annotations
 
@@ -50,6 +53,18 @@ def load_module(folder: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def system(config: dict):
+    """The class of the system under test that ``config`` names with
+    ``"system": "<name>"``: ``systems/<name>.py``'s ``System``; without the
+    key, ``sut.System``, the port on one card."""
+    name = config.get("system")
+    if name is None:
+        from . import sut
+
+        return sut.System
+    return load_module("systems", name).System
 
 
 def reader(metric: str):

@@ -1,11 +1,14 @@
-"""The system under test: ``repro_torch``, and the only module here that imports it.
+"""The system under test: ``repro_torch`` on one card, the system of every
+configuration that names none.
 
-The benchmark drives the port through its own entry points: the pack
-(``graphs.engine.pack_ordered``), the elastic rescale
-(``elastic.rescale_exec.ElasticRescaler.rescale`` with the re-check on) and
-the query programs (``graphs.engine.query_program``). From the port it takes
-besides only its spans (``obs.trace``), the program cache's counters and
-its kernels' names, which the device trace shows.
+This module and the modules of ``systems/`` (each a system that a
+configuration names with ``"system"``, ``spec.system``) are the only modules
+of the benchmark that import the port. The benchmark drives the port through
+its own entry points: the pack (``graphs.engine.pack_ordered``), the elastic
+rescale (``elastic.rescale_exec.ElasticRescaler.rescale`` with the re-check
+on) and the query programs (``graphs.engine.query_program``). From the port
+it takes besides only its spans (``obs.trace``), the program cache's
+counters and its kernels' names, which the device trace shows.
 """
 from __future__ import annotations
 
@@ -25,7 +28,13 @@ class System:
     """One process's instance of the port: a pack, its rescaler and its query
     programs."""
 
-    def __init__(self, *, num_vertices: int, device: torch.device, queries: dict, traced: bool = False):
+    group = None  # the queries' ``GraphGroup``: None is one card; a system over ranks sets its own first
+
+    def __init__(self, *, num_vertices: int, device: torch.device, queries: dict, traced: bool = False,
+                 world=None):
+        if self.group is None and world is not None and world.size > 1:
+            raise ValueError(f"sut.System runs on one card, not over {world.size} ranks: "
+                             "a configuration over ranks names its system")
         if traced:
             # The rescaler's span ``rescale.migrate`` also enters a profiler
             # range, so the device trace shows it.
@@ -35,7 +44,7 @@ class System:
         self.rescaler = rescale_exec.ElasticRescaler()
         self.programs = {
             kind: engine.query_program(
-                kind, num_vertices=self.num_vertices, iterations=queries["pagerank_iterations"],
+                kind, num_vertices=self.num_vertices, group=self.group, iterations=queries["pagerank_iterations"],
                 damping=queries["damping"], max_iters=queries["max_iters"],
             )
             for kind in engine.QUERY_KINDS
@@ -68,4 +77,6 @@ class System:
         return data.edges, data.mask, data.k, data.mirrors
 
     def close(self) -> None:
+        """Frees the rescaler and the programs; ``view`` still reads a pack."""
         program_trace.set_tracer(None)
+        self.rescaler = self.programs = None

@@ -27,6 +27,11 @@ def test_top_level_keys_command_and_paths():
     assert 1 <= DOC["run_seconds"] <= 51 and isinstance(DOC["run_seconds"], int)
 
 
+def test_at_most_a_quarter_of_the_cells_take_four_chips():
+    four = [w["name"] for w in DOC["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(CELLS) // 4), four
+
+
 def test_a_full_check_with_24_cells_fits_its_time():
     runs = 2 + 14 * 24
     assert runs * (DOC["run_seconds"] + 60) + 24 * 2 * 90 + 1200 <= 43200
@@ -73,7 +78,9 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_per_layer_metric(cell
     e2e = [m["name"] for m in spec.metrics_of(cell, trace=False)]
     assert "setup_s" in e2e and len(e2e) >= 2 and spec.metrics_of(cell, trace=True)
     w = spec.cell(cell)
-    assert w["chips"] == 1 and len(w["why"]) <= 200
+    assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    if w["chips"] > 1:  # sut.System is the port on one card: a cell over ranks names its system
+        assert "system" in spec.config(w["config"]), cell
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -85,6 +92,7 @@ def test_discovery_by_name_finds_every_file_of_a_cell(cell):
         c["reduced"] for c in DOC["configs"] if c["name"] == w["config"])
     assert hasattr(specmod.load_module("drivers", mix["driver"]), "Player")
     assert hasattr(specmod.load_module("generators", config["generator"]["module"]), "generate")
+    assert callable(specmod.system(config))
     for m in spec.metrics_of(cell, False) + spec.metrics_of(cell, True):
         assert callable(specmod.reader(m["name"]))
 
@@ -107,7 +115,8 @@ def _imports_in_fresh_process(modules):
 
 def test_a_run_loads_no_jax_and_the_yardstick_none_of_the_program():
     run_mods = _imports_in_fresh_process(["perfbench.run", "perfbench.harness", "perfbench.sut",
-                                          "perfbench.control", "perfbench.sweep"])
+                                          "perfbench.control", "perfbench.sweep", "perfbench.ranks",
+                                          "perfbench.launcher"])
     assert entry.foreign_modules(run_mods) == []
     assert "repro_torch.graphs.engine" in run_mods
     yardstick = _imports_in_fresh_process(["perfbench.reference", "perfbench.judge", "perfbench.cep",
