@@ -124,3 +124,18 @@ class DeviceTrace:
             label = "/".join(x for x in (ranges[-1] if ranges else "", ops[-1] if ops else "") if x) or "host idle"
             total[label] += (b - a) * 1e-6
         return [[name, s] for name, s in total.most_common(n)]
+
+
+def pooled_kernel_seconds(traces, name: str, launches: int):
+    """Seconds of the kernels whose name contains ``name``, summed over every
+    rank's trace; ``None`` unless every rank launched it ``launches`` times,
+    at least once."""
+    if not traces or launches <= 0:
+        return None
+    seconds = 0.0
+    for trace in traces:
+        n, s = trace.kernel(name)
+        if n != launches:
+            return None
+        seconds += s
+    return seconds

@@ -17,6 +17,7 @@ reads the metrics and returns a result.
 """
 from __future__ import annotations
 
+import collections
 import time
 import types
 
@@ -45,6 +46,12 @@ def _traced(play, dev: torch.device, stamps: list):
     trace = devtrace.DeviceTrace.from_profiler(prof)
     stamps.append(("trace read", time.perf_counter()))
     return out, trace
+
+
+def _whole(system, data, k: int):
+    """``(edges, mask, k)`` of one held pack, whole."""
+    edges, mask, _, _ = system.view(data)
+    return edges, mask, k
 
 
 def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_start: float,
@@ -77,6 +84,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_sta
     system = system_cls(num_vertices=num_vertices, device=dev, queries=mix["queries"], traced=trace, world=world)
     k0 = driver.first_k(config["k_range"], mix)
     data = system.pack(src_h, dst_h, k0)
+    if world.rank != 0:
+        src_h = dst_h = None  # rank 0 alone judges; the player reads only ``present``
     stamps.append(("pack", time.perf_counter()))
     player = driver.Player(system, mix, config, seed=seed, present=present, annotate=trace, hold=HELD_PACKS,
                            world=world)
@@ -104,15 +113,15 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool, device, *, t_sta
 
     def packs():
         """``(edges, mask, k asked for)`` of each pack the check compares,
-        whole: over ranks, gathered from every rank one at a time."""
-        for d, k in held:
-            edges, mask, _, _ = system.view(d)
-            yield edges, mask, k
+        whole: over ranks, gathered from every rank one at a time. Each held
+        pack is dropped as it is handed over, and nothing here keeps the
+        whole one once the next is asked for."""
+        while held:
+            yield _whole(system, *held.pop(0))
 
     system.close()  # frees the program's state; its packs stay readable
     if world.rank != 0:
-        for _ in packs():
-            pass
+        collections.deque(packs(), maxlen=0)  # takes part in each gather, keeps nothing
         return None
     checks = judge.judge(src_h, dst_h, num_vertices, events, packs(), mix["queries"], config["limits"], dev)
     del system, held

@@ -17,6 +17,7 @@ A number is held to the limit its configuration's file gives it.
 from __future__ import annotations
 
 import math
+from collections.abc import Iterable
 
 import numpy as np
 import torch
@@ -28,10 +29,11 @@ def _finite(x: float) -> float:
     return float(x) if math.isfinite(x) else 1e300  # a NaN or an overflow fails any limit and stays valid JSON
 
 
-def judge(src_h: np.ndarray, dst_h: np.ndarray, num_vertices: int, events: list, packs: list, queries: dict,
+def judge(src_h: np.ndarray, dst_h: np.ndarray, num_vertices: int, events: list, packs: Iterable, queries: dict,
           limits: dict, device: torch.device) -> dict:
-    """``{name: {"value", "limit"}}``. ``packs`` are ``(edges, mask, k asked
-    for)`` of the program's packs to compare slot by slot."""
+    """``{name: {"value", "limit"}}``. ``packs`` yields ``(edges, mask, k
+    asked for)`` of the program's packs to compare slot by slot, one at a
+    time: each pack and the reference's are dropped before the next comes."""
     src = torch.from_numpy(src_h).to(device)
     dst = torch.from_numpy(dst_h).to(device)
     v = int(num_vertices)
@@ -48,7 +50,7 @@ def judge(src_h: np.ndarray, dst_h: np.ndarray, num_vertices: int, events: list,
         for edges, mask, k in packs:
             want_edges, want_mask = reference.pack(src, dst, k)
             wrong += reference.slots_wrong(edges, mask, want_edges, want_mask)
-            del want_edges, want_mask
+            del edges, mask, want_edges, want_mask  # before the next pack is gathered
         values["pack_slots_wrong"] = wrong
 
     by_kind = {kind: [e for e in ok if e["kind"] == kind] for kind in ("pagerank", "sssp", "wcc")}

@@ -1,16 +1,17 @@
 """The ``rescale_migrate`` kernel's share of its byte roofline over the
-traced window: the bytes every migration must move (``peaks``) over the
-kernel's time in the device trace. Nothing where the trace's launches do
-not match the window's migrations one to one."""
-from perfbench import peaks
+traced window, pooled over the ranks: the bytes every rank's migrations must
+move (``peaks.rescale_migrate_rank_bytes``) over the kernel's time summed
+over every rank's device trace (one trace on one card). Nothing where any
+rank's launches do not match the window's migrations one to one."""
+from perfbench import devtrace, peaks
 from perfbench.sut import KERNELS
 
 
 def read(run):
-    if run.trace is None:
-        return None
     done = [e for e in run.events if e["kind"] == "rescale" and e.get("ok")]
-    launches, seconds = run.trace.kernel(KERNELS["rescale_migrate"])
-    if not done or launches != len(done):
+    seconds = devtrace.pooled_kernel_seconds(run.traces, KERNELS["rescale_migrate"], len(done))
+    if seconds is None:
         return None
-    return peaks.roofline_pct(sum(peaks.rescale_migrate_bytes(run.num_edges, e["k_new"]) for e in done), seconds)
+    g = len(run.traces)
+    return peaks.roofline_pct(sum(peaks.rescale_migrate_rank_bytes(run.num_edges, e["k_old"], e["k_new"], g, r)
+                                  for e in done for r in range(g)), seconds)

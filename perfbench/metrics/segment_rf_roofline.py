@@ -1,16 +1,17 @@
 """The ``segment_rf`` kernel's share of its byte roofline over the traced
-window: the bytes of every re-check's count (``peaks``) over the kernel's
-time in the device trace. Nothing where the trace's launches do not match
-the window's re-checks one to one."""
-from perfbench import peaks
+window, pooled over the ranks: the bytes of every rank's re-check counts
+(``peaks.segment_rf_rank_bytes``) over the kernel's time summed over every
+rank's device trace (one trace on one card). Nothing where any rank's
+launches do not match the window's re-checks one to one."""
+from perfbench import devtrace, peaks
 from perfbench.sut import KERNELS
 
 
 def read(run):
-    if run.trace is None:
-        return None
     done = [e for e in run.events if e["kind"] == "rescale" and e.get("ok")]
-    launches, seconds = run.trace.kernel(KERNELS["segment_rf"])
-    if not done or launches != len(done):
+    seconds = devtrace.pooled_kernel_seconds(run.traces, KERNELS["segment_rf"], len(done))
+    if seconds is None:
         return None
-    return peaks.roofline_pct(sum(peaks.segment_rf_bytes(run.num_edges, e["k_new"]) for e in done), seconds)
+    g = len(run.traces)
+    return peaks.roofline_pct(sum(g * peaks.segment_rf_rank_bytes(run.num_edges, e["k_new"], g) for e in done),
+                              seconds)

@@ -20,9 +20,12 @@ Each runs ``harness.run`` with its ``World``. The contract:
 * Only rank 0 prints a result line. ``device.count`` is the number of ranks
   and ``memory_peak_bytes`` the largest peak over them. Rank 0 judges packs
   gathered whole from every rank, against the same reference.
-* In a traced run every rank runs under the profiler. The metrics read rank
-  0's trace as on one card; ``traces`` holds every rank's device work, so a
-  metric can read the slowest card.
+* In a traced run every rank runs under the profiler. ``traces`` holds
+  every rank's device work: the kernels' rooflines pool every rank's bytes
+  and kernel time from it, and the other metrics read rank 0's trace as on
+  one card.
+* Rank 0 alone keeps the host copy of the ordered list past the pack, for
+  the check.
 * The check for modules of JAX or of the JAX package runs in every rank.
 
 A rank that raises or exits ends the run, and so does one that stays in a

@@ -6,9 +6,10 @@ nothing the program made. Each answer is computed another way than the
 program computes it where a plain way exists:
 
 * the pack at k: one slice copy a chunk into a zeroed ``(k, ⌈n/k⌉)`` block;
-* the mirrors at k: Σ_p |V(E_p)| − |V(E)|, counted once for every k from
-  the endpoint occurrences sorted by (vertex, ordered id), where the program
-  sorts each chunk's ids and counts the boundaries;
+* the mirrors at k: Σ_p |V(E_p)| − |V(E)|, counted for every k from the
+  endpoint occurrences sorted by (vertex, ordered id), a range of vertex ids
+  at a time, where the program sorts each chunk's ids and counts the
+  boundaries;
 * PageRank in float64 (the program computes in float32);
 * SSSP (unit weights) as a breadth-first search by frontiers, with the
   sweep count of the program's synchronous relaxation, ``min(ecc + 1,
@@ -50,24 +51,47 @@ def slots_wrong(edges: torch.Tensor, mask: torch.Tensor, want_edges: torch.Tenso
     return int(((edges != want_edges).any(dim=-1) | (mask != want_mask)).sum())
 
 
+MIRROR_BLOCK = 1 << 27  # endpoint occurrences that ``mirrors`` sorts at once (about)
+
+
 def mirrors(src: torch.Tensor, dst: torch.Tensor, ks) -> dict:
-    """``{k: Σ_p |V(E_p)| − |V(E)|}`` for every k in ``ks``."""
-    n = src.numel()
-    occ = torch.cat([src, dst]).long() * n + torch.arange(n, device=src.device).repeat(2)
-    occ = torch.sort(occ).values
-    vertex_starts = torch.ones(occ.numel(), dtype=torch.bool, device=src.device)
-    vertex_starts[1:] = (occ[1:] // n) != (occ[:-1] // n)
-    present = int(vertex_starts.sum())
-    pos = (occ % n).to(torch.int32)  # every ordered id is below 2**31
-    del occ
-    out = {}
-    for k in sorted(set(int(k) for k in ks)):
-        part = cep.chunk_of(pos, n, k)
-        new = vertex_starts.clone()
-        new[1:] |= part[1:] != part[:-1]
-        out[k] = int(new.sum()) - present
-        del part, new
-    return out
+    """``{k: Σ_p |V(E_p)| − |V(E)|}`` for every k in ``ks``.
+
+    Sorted by ordered id, a vertex's occurrences fall into its chunks in
+    runs, so the chunks that hold it number one more than the pairs of its
+    successive occurrences that lie in different chunks. Summed over the
+    vertices, the mirrors at k are those pairs. The vertex ids are cut into
+    ranges of about ``MIRROR_BLOCK`` occurrences (one vertex's whole,
+    whatever its degree), and each range's occurrences are sorted once, by
+    (vertex, ordered id), and its pairs counted for every k. Beyond ``src`` and
+    ``dst`` the working memory is the degrees and one range's sort and
+    pairs, whatever n: 7.5 GB on an H100, at 260M and at 1.05G edges alike."""
+    n, block = src.numel(), MIRROR_BLOCK
+    ks = sorted(set(int(k) for k in ks))
+    counts = torch.zeros(len(ks), dtype=torch.int64, device=src.device)
+    if n:
+        v = int(torch.maximum(src.max(), dst.max())) + 1
+        ends = torch.cumsum(torch.bincount(src, minlength=v) + torch.bincount(dst, minlength=v), 0)
+        starts = torch.arange(1, -(-2 * n // block), device=src.device) * block  # of every range but the first
+        cuts = sorted(set(torch.searchsorted(ends, starts, right=True).tolist()) | {0, v})  # each range's first vertex
+        del ends, starts
+        for v0, v1 in zip(cuts, cuts[1:]):
+            keys = []
+            for ids in (src, dst):
+                at = torch.nonzero((ids >= v0) & (ids < v1)).squeeze(1)
+                keys.append(((ids[at].long() - v0) << 31) | at)  # (vertex, ordered id): every id is below 2**31
+                del at
+            key = torch.sort(torch.cat(keys)).values
+            del keys
+            same = (key[1:] >> 31) == (key[:-1] >> 31)
+            pos = (key & (2**31 - 1)).to(torch.int32)
+            del key
+            first, then = pos[:-1][same], pos[1:][same]  # successive occurrences of one vertex
+            del pos, same
+            for i, k in enumerate(ks):
+                counts[i] += (cep.chunk_of(first, n, k) != cep.chunk_of(then, n, k)).sum()
+            del first, then
+    return dict(zip(ks, counts.tolist()))
 
 
 def pagerank(src, dst, v: int, iterations: int, damping: float, dtype=torch.float64) -> torch.Tensor:

@@ -1,5 +1,7 @@
 """The yardstick on the CPU: the generator, the frozen CEP arithmetic and the
 plain reference against graphs built by hand."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -51,6 +53,26 @@ def test_generator_refuses_an_initiator_that_does_not_sum_to_one():
         graph500.generate({**PARAMS, "initiator": [0.5, 0.2, 0.2, 0.2]}, CPU)
 
 
+def _digest(src, dst, present) -> str:
+    h = hashlib.sha256()
+    for a in (src.numpy(), dst.numpy(), present):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+# The generator's graphs, taken on the CPU and pinned: a change to how it
+# draws or builds them changes every cell's instance, which may not change.
+@pytest.mark.parametrize("scale, seed, edges, present, digest", [
+    (10, 2**31 + 77, 10_498, 888, "be9e58ea27e236830cc0607a70025d89690d5d9e50a55492b29d1ac952b1f864"),
+    (14, 20261024, 212_983, 12_469, "f44f10f20a972ceb6c6146aa96c8f50cd91ff2a2a63f1b3d25f9f240ec20d12a"),
+])
+def test_generator_gives_the_graphs_of_its_first_version(scale, seed, edges, present, digest):
+    src, dst, n, got_present = graph500.generate({**PARAMS, "scale": scale, "instance_seed": seed}, CPU)
+    assert (src.numel(), got_present.shape[0], n) == (edges, present, 1 << scale)
+    assert src.dtype == dst.dtype == torch.int32 and got_present.dtype == np.int64
+    assert _digest(src, dst, got_present) == digest
+
+
 # ------------------------------------------------------------------ CEP copy
 @pytest.mark.parametrize("n, k", [(5, 2), (17, 4), (1000, 128), (100, 100), (15_701_711, 17)])
 def test_cep_chunks_cover_the_list_and_agree_with_chunk_of(n, k):
@@ -89,6 +111,36 @@ def test_mirrors_by_hand():
     # at k = 3 every edge is a chunk and vertices 1 and 2 are mirrored once each.
     src, dst = _edges([(0, 1), (1, 2), (2, 3)])
     assert reference.mirrors(src, dst, [1, 2, 3]) == {1: 0, 2: 1, 3: 2}
+
+
+def _mirrors_by_brute_force(src, dst, k):
+    """Σ_p |V(E_p)| − |V(E)|, each chunk's distinct vertices counted as a set."""
+    b = cep.chunk_bounds(src.numel(), k)
+    s, d = src.tolist(), dst.tolist()
+    chunks = sum(len(set(s[b[p]:b[p + 1]]) | set(d[b[p]:b[p + 1]])) for p in range(k))
+    return chunks - len(set(s) | set(d))
+
+
+_SMALL = graph500.generate({**PARAMS, "scale": 7}, CPU)[:2]  # 925 edges, the highest degree 86
+
+
+@pytest.mark.parametrize("n, k", [(n, k) for n in (2, 37, 925) for k in (1, 2, 3, 7, 64, 128) if k <= n])
+@pytest.mark.parametrize("block", [1, 5, 64, 1 << 27])  # all but the last below the highest degree
+def test_mirrors_in_blocks_equal_a_count_of_distinct_vertices_per_chunk(n, k, block, monkeypatch):
+    # The first n edges of the scale-7 graph; most k leave an uneven last chunk.
+    src, dst = _SMALL[0][:n], _SMALL[1][:n]
+    assert n < 925 or int(torch.bincount(torch.cat([src, dst]).long()).max()) > 64
+    monkeypatch.setattr(reference, "MIRROR_BLOCK", block)
+    assert reference.mirrors(src, dst, [k]) == {k: _mirrors_by_brute_force(src, dst, k)}
+
+
+def test_mirrors_answer_every_k_asked_for_at_once(monkeypatch):
+    src, dst = _SMALL
+    ks = [128, 4, 17, 4, 5]
+    monkeypatch.setattr(reference, "MIRROR_BLOCK", 100)
+    got = reference.mirrors(src, dst, ks)
+    assert got == {k: _mirrors_by_brute_force(src, dst, k) for k in sorted(set(ks))}
+    assert reference.mirrors(src[:0], dst[:0], [3]) == {3: 0}
 
 
 def test_sssp_by_hand():
