@@ -12,10 +12,11 @@ Phases, in order; any failure raises and the script exits nonzero:
    (the RMAT graph at ``--scale``, then ``geo_order`` on the host, 100-190 s
    at scale 20), which runs while phases 3-9 and paths 6 (b) and 8 (b) run
    here; the parent waits for it before slice 1;
-3. build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+3. build the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (``segment_rf``, ``edge_spmv``, ``flash_attention``, ``decode_attention``,
    ``full_reorder``, the full rung's greedy, ``rescale_migrate``, a
-   rescale's migration, ``min_sweep``, a sweep of SSSP or WCC),
+   rescale's migration, ``min_sweep``, a sweep of SSSP or WCC,
+   ``packed_sort``, the re-check's row sort),
    one ``nvcc`` per source, all started together; print each ``ptxas`` report;
    check with ``cuobjdump -sass`` that every bf16 (tensor-core) flash
    instantiation issues HGMMA;
@@ -32,6 +33,15 @@ Phases, in order; any failure raises and the script exits nonzero:
    more chunks than the grid has blocks, so that blocks stride over them;
    and exactly, bit for bit, at the hub row with integer weights and x in
    [-8, 8] (every partial sum exact in f32);
+   ``packed_sort`` bit for bit against ``torch.sort`` of the masked rows
+   (``packed_sort_path``): small cases (31 bits, one bit, a row of exactly
+   one tile and one past it, 130 short rows, a hub, sorted rows), the
+   graph500-22 and -24 instances of ``perfbench/configs`` packed on the card
+   at k = 4, 16, 37 and 128, rank 3's padded block of 4 at k = 37 and slots
+   masked in the middle of the rows; each case timed on the card alone and
+   a wrapper call beside its byte bound, the plain version and
+   ``torch.sort`` (its ``library_ms``); slice 1 checks one sort a pack and a
+   re-checked rescale, in ``digit_passes`` passes each;
    ``rescale_migrate`` byte for byte, edges and mask, into blocks holding a
    sentinel (the receive ranges must keep it), at odd and even E_max, a
    single-row plan, padded rows with receive ranges, and views 8 bytes off a
@@ -334,6 +344,11 @@ H100_BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core rate
 KERNELS = ("segment_rf", "edge_spmv", "flash_attention", "decode_attention", "full_reorder", "rescale_migrate",
            "min_sweep")
 PACK_KS = (4, 16, 64, 128)
+# packed_sort at the benchmark's packs: graph500-22 and -24 (perfbench's
+# instances), at these k, ids below 2**scale.
+SORT_SCALES = (22, 24)
+SORT_KS = (4, 16, 37, 128)
+SORT_SHARDED = (37, 4)  # the padded block of rank 3 of 4 at k = 37 (k_pad 40, its last row all padding)
 ROW_KS = (4, 8, 12, 16, 17, 64, 128)  # every k whose rows the main path counts
 PAGERANK_RTOL = 1e-4  # CUDA scatter-add uses atomics: f32 sums in varying order
 # f32 sums in varying order (atomics): the entry point against a float64
@@ -1086,6 +1101,109 @@ def rows_timing(rows, segment_rf) -> dict:
                 wrapper_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts(rows), 50),
                 plain_ms=cuda_ms(lambda: segment_rf.segment_distinct_counts_torch(rows), 5),
                 bound_ms=(c * w * 4 + c * 4) / H100_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None)
+
+
+def device_pack(src: torch.Tensor, dst: torch.Tensor, k: int, rows: int | None = None) -> tuple:
+    """The CEP pack of ordered endpoint lists on their device, laid out as
+    ``graphs/engine.py host_pack`` lays it: ``(edges, mask)`` with ``rows``
+    rows (``k`` by default; the rows past ``k`` all padding)."""
+    from repro_torch.core import cep
+
+    bounds = cep.chunk_bounds(int(src.shape[0]), k)
+    e_max = int(np.diff(bounds).max())
+    edges = torch.zeros((rows or k, e_max, 2), dtype=torch.int32, device=src.device)
+    mask = torch.zeros((rows or k, e_max), dtype=torch.float32, device=src.device)
+    for p in range(k):
+        lo, hi = int(bounds[p]), int(bounds[p + 1])
+        edges[p, : hi - lo, 0], edges[p, : hi - lo, 1] = src[lo:hi], dst[lo:hi]
+        mask[p, : hi - lo] = 1.0
+    return edges, mask
+
+
+def sort_timing(PS, edges, mask, num_vertices: int, what: str, reps: int) -> dict:
+    """``packed_sort`` on one pack, held bit for bit against ``torch.sort`` of
+    the masked rows, then timed: on the card alone (``reps`` calls captured
+    in a CUDA graph) and a wrapper call (back-to-back calls between events),
+    beside its byte bound (``PS.sort_bytes``), the plain version (``where``
+    and ``torch.sort``) and ``torch.sort`` of the rows already masked."""
+    k, e_max, _ = edges.shape
+    launches, passes = PS.launches, PS.passes
+    got = PS.packed_sort(edges, mask, num_vertices)
+    ids = torch.where(mask[..., None] > 0, edges, PS.PAD_ID).reshape(k, 2 * e_max)
+    want = torch.sort(ids, dim=1).values
+    torch.cuda.synchronize()
+    check(PS.launches == launches + 1 and PS.passes == passes + PS.digit_passes(num_vertices),
+          f"packed_sort at {what}: launches {PS.launches - launches}, passes {PS.passes - passes}")
+    check(torch.equal(got, want), f"packed_sort at {what}: differs from torch.sort of the masked rows")
+    valid = 2 * int((mask > 0).sum())
+    del got, want
+    bound_ms = PS.sort_bytes(2 * k * e_max, valid, num_vertices) / H100_BYTES_PER_S * 1e3
+    ms = graph_ms(lambda: PS.packed_sort(edges, mask, num_vertices), reps)
+    out = dict(shape=[k, 2 * e_max], valid=valid, num_vertices=num_vertices,
+               passes=PS.digit_passes(num_vertices), ms=ms,
+               wrapper_ms=cuda_ms(lambda: PS.packed_sort(edges, mask, num_vertices), reps),
+               plain_ms=cuda_ms(lambda: PS.packed_sort_torch(edges, mask), reps),
+               library_ms=cuda_ms(lambda: torch.sort(ids, dim=1), reps), bound_ms=bound_ms, bound_by="bytes",
+               bound_share=bound_ms / ms)
+    log(f"packed_sort {what} {out['shape']}, {valid} valid keys, {out['passes']} passes: bit-exact; {ms:.4f} ms on "
+        f"the card, {out['wrapper_ms']:.4f} ms a wrapper call, plain {out['plain_ms']:.4f} ms, torch.sort "
+        f"{out['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({out['bound_share']:.3f} of it)")
+    return out
+
+
+def packed_sort_path(dev, PS) -> dict:
+    """``packed_sort`` bit for bit against ``torch.sort`` of the masked rows
+    and timed (``sort_timing``): the graph500-22 and -24 instances of
+    ``perfbench/configs`` packed on the card at every k of ``SORT_KS`` with
+    ``num_vertices`` 2**scale; rank 3's padded block of 4 at k = 37; the
+    k = 16 pack at scale 22 with slots masked out in the middle of its rows;
+    and small cases (31 bits, one bit, tile edges, a hub of one id). Returns
+    the readings by case."""
+    from perfbench.generators import graph500
+
+    read: dict = {}
+    rng = torch.Generator(device=dev).manual_seed(5)
+    for e_max, k, nv, layout in [(50, 3, None, "random"), (4096, 2, 2**20, "random"), (4097, 3, 1, "random"),
+                                 (12_289, 5, 2**31 - 1, "random"), (9, 130, 513, "random"),
+                                 (40_000, 4, 2**22, "hub"), (40_000, 4, 2**16, "sorted")]:
+        hi = nv or 2**31 - 1
+        edges = torch.randint(0, hi, (k, e_max, 2), dtype=torch.int32, device=dev, generator=rng)
+        if layout == "hub":
+            edges[:, : e_max // 2] = hi - 1
+        elif layout == "sorted":
+            edges = torch.sort(edges.reshape(k, -1), dim=1).values.reshape(k, e_max, 2).contiguous()
+        mask = (torch.rand((k, e_max), device=dev, generator=rng) > 0.3).float()
+        mask[0, e_max // 2 :] = 0.0
+        if k > 2:
+            mask[2] = 0.0  # a row with no valid slot
+        read[f"small_{k}x{e_max}_{layout}_nv{nv}"] = sort_timing(PS, edges, mask, nv, f"({k}, {e_max}) {layout}, "
+                                                                 f"num_vertices {nv}", 5)
+    params = dict(json.loads((ROOT / "perfbench/configs/g500-s22.json").read_text())["generator"])
+    for scale in SORT_SCALES:
+        params["scale"] = scale
+        src, dst, v, _ = graph500.generate(params, dev)
+        torch.cuda.empty_cache()
+        for k in SORT_KS:
+            edges, mask = device_pack(src, dst, k)
+            read[f"s{scale}_k{k}"] = sort_timing(PS, edges, mask, v, f"graph500-{scale} k = {k}", 5)
+            if scale == SORT_SCALES[0] and k == 16:  # slots masked out in the middle of the rows
+                e_max = edges.shape[1]
+                mask[:, e_max // 3 : e_max // 2] = 0.0
+                mask[5, ::7] = 0.0
+                read[f"s{scale}_k{k}_masked_middle"] = sort_timing(PS, edges, mask, v, f"graph500-{scale} k = {k}, "
+                                                                   "slots masked in the middle", 5)
+            del edges, mask
+        if scale == SORT_SCALES[0]:
+            k, g = SORT_SHARDED
+            k_pad = -(-k // g) * g
+            edges, mask = device_pack(src, dst, k, rows=k_pad)
+            edges, mask = edges[g - 1 :: g].contiguous(), mask[g - 1 :: g].contiguous()
+            read[f"s{scale}_k{k}_rank{g - 1}of{g}"] = sort_timing(PS, edges, mask, v, f"graph500-{scale} k = {k}, "
+                                                                  f"rank {g - 1} of {g}'s padded block", 5)
+            del edges, mask
+        del src, dst
+        torch.cuda.empty_cache()
+    return read
 
 
 def twin_times(dev, stream_span, rungs_slots, segment_rf) -> dict:
@@ -3425,6 +3543,7 @@ def main() -> int:
     from repro_torch.elastic.rescale_exec import EDGE_BYTES, ElasticRescaler
     from repro_torch.graphs import engine as E
     from repro_torch.kernels import _build, edge_spmv, ops, segment_rf
+    from repro_torch.kernels import packed_sort as PS
     from repro_torch.kernels import decode_attention as dec
     from repro_torch.kernels import min_sweep as MS
     from repro_torch.kernels import flash_attention as fa
@@ -3465,7 +3584,8 @@ def main() -> int:
 
     # ---------------------------------------------------------------- build
     t0 = time.perf_counter()
-    built = KERNELS if args.cards == 1 else ("segment_rf", "full_reorder", "rescale_migrate", "min_sweep")  # paths 5-7
+    built = (KERNELS if args.cards == 1 else ("segment_rf", "full_reorder", "rescale_migrate", "min_sweep")) + (
+        "packed_sort",)  # paths 5-7 on four cards; packed_sort sorts every pack's rows on a card
     lib_paths = _build.build_all(built)
     for name in built:
         _build.load(name)
@@ -3556,6 +3676,13 @@ def main() -> int:
             del t, got, want
         all_pad = torch.full((8, 5000), PAD_ID, dtype=torch.int32, device=dev)
         check(int(segment_rf.segment_distinct_counts(all_pad).abs().sum()) == 0, "all-PAD rows must count 0")
+
+        # ------------------------------- packed_sort: bit-exact, timed at the benchmark's packs
+        t0 = time.perf_counter()
+        sort_read = packed_sort_path(dev, PS)
+        phases["packed_sort_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
 
         # ------------------------------------------------- kernel parity: edge_spmv
         # dst layouts: "random", "hub" (one dst in every slot), "alternating" (no
@@ -3819,6 +3946,7 @@ def main() -> int:
         return oracle_counts[k]
 
     reset_launches()
+    PS.launches = PS.passes = 0
     t_main = time.perf_counter()
     for k in PACK_KS + (8,):
         t0 = time.perf_counter()
@@ -3853,6 +3981,10 @@ def main() -> int:
     torch.cuda.synchronize()
     phases["main_path_s"] = time.perf_counter() - t_main
     slice1_launches = read_launches()
+    check(PS.launches == expected_launches and PS.passes == expected_launches * PS.digit_passes(v),
+          f"slice 1: packed_sort sorted {PS.launches} times in {PS.passes} passes, expected once a pack and a "
+          f"re-checked rescale ({expected_launches}), {PS.digit_passes(v)} passes each")
+    slice1_sorts = PS.launches
 
     for k in PACK_KS + (8,):
         rf, mir = oracle(k)
@@ -4406,6 +4538,15 @@ def main() -> int:
             **({"rungs_shapes": r["rungs_shapes"]} if "rungs_shapes" in r else {}),
             **{key: r[key] for key in r if key.startswith(("multirank_", "streamrank_", "outofcore_", "control_"))},
         })
+    if args.cards == 1:
+        widest = sort_read[f"s{SORT_SCALES[-1]}_k{SORT_KS[0]}"]
+        kernels.append({
+            "name": "packed_sort", "route": "cuda", "source": "src/repro_torch/kernels/csrc/packed_sort.cu",
+            "replaces": "src/repro/kernels/ops.py:58",  # the row sort jnp.sort: no pl.pallas_call
+            "launches": slice1_sorts, "parity": "exact", "max_abs_err": 0,
+            **{key: widest[key] for key in ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                            "shape", "bound_share")},
+            "cases": sort_read})
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

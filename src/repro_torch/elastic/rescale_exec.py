@@ -37,8 +37,10 @@ Spans (``obs/trace.py``, on the rescaler's tracer): ``rescale.plan`` around
 ``rescale.layout_check`` (ending at its readback), ``rescale.table_build`` (a
 program-cache miss only), ``rescale.migrate`` (``RescaleStats.elapsed_s``) and
 ``rescale.recheck`` (``RescaleStats.recheck_s``), the last split into
-``rescale.recheck.rows`` (``packed_rows``' where and sort) and
-``rescale.recheck.count`` (``segment_rf`` through the readbacks).
+``rescale.recheck.rows`` (``packed_rows``' sort) and
+``rescale.recheck.count`` (``segment_rf`` through the readbacks). The counter
+``rescale.recheck.sort_passes`` adds each re-check's digit passes of the
+``packed_sort`` kernel (0 on the CPU's plain version).
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ import torch
 
 from ..core import cep
 from ..graphs import engine as graph_engine
-from ..kernels import ops
+from ..kernels import ops, packed_sort
 from ..kernels import rescale_migrate as RM
 from ..kernels import segment_rf
 from ..launch import multihost as MH
@@ -341,7 +343,9 @@ class ElasticRescaler:
                 t1 = time.perf_counter()
                 if recheck:
                     with tracer.span("rescale.recheck.rows"):
-                        rows = ops.packed_rows(new_edges, new_mask)
+                        passes = packed_sort.passes
+                        rows = ops.packed_rows(new_edges, new_mask, data.num_vertices)
+                        m.counter("rescale.recheck.sort_passes").inc(packed_sort.passes - passes)
                     with tracer.span("rescale.recheck.count"):
                         local = segment_rf.segment_distinct_counts(rows).to(torch.int64).sum()
                         total = int(MH.all_reduce(local, group, "sum"))

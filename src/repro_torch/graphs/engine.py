@@ -110,7 +110,7 @@ def _on_device(edges, mask, num_vertices: int, k: int, num_edges: int, device) -
     ends = edges_t[mask_t > 0].reshape(-1).long()
     # Counts below 2**24 are exact in f32, as np.add.at's f32 sums are.
     degrees = torch.bincount(ends, minlength=num_vertices).float()
-    counts = ops.chunk_vertex_counts_packed(edges_t, mask_t)
+    counts = ops.chunk_vertex_counts_packed(edges_t, mask_t, num_vertices)
     total = int(counts.sum())
     present = int((degrees > 0).sum())
     return EngineData(
@@ -360,7 +360,7 @@ def pack_ordered_sharded(
     deg = (np.bincount(src_ordered, minlength=num_vertices)
            + np.bincount(dst_ordered, minlength=num_vertices)).astype(np.float32)
     degrees = torch.from_numpy(deg).to(edges_t.device)
-    local = ops.chunk_vertex_counts_packed(edges_t, mask_t).sum()
+    local = ops.chunk_vertex_counts_packed(edges_t, mask_t, num_vertices).sum()
     total = int(MH.all_reduce(local, group, "sum"))
     present = int(np.count_nonzero(deg))
     return ShardedEngineData(

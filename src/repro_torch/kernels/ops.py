@@ -1,9 +1,10 @@
 """Public ops over the port's kernels.
 
 * RF of packed CEP chunks through ``segment_rf``. The rows are made on the
-  data's device: masked-out slots become ``PAD_ID`` and each chunk's endpoint
-  ids are sorted with ``torch.sort`` (a library call, as the JAX package left
-  the row sort to XLA). The kernel then counts the distinct ids of every row.
+  data's device by ``packed_sort``: each chunk's valid endpoint ids sorted
+  over the bits below ``num_vertices``, ``PAD_ID`` at the tail (on a card one
+  hand-written radix sort, where the JAX package left the row sort to XLA).
+  ``segment_rf`` then counts the distinct ids of every row.
 * ``chunked_spmv``: the GAS gather-reduce ``y[dst] += w·x[src]`` over
   GEO-ordered edge chunks through ``edge_spmv``, with the chunks packed into
   windows on the device (``pack_windows_device``; the numpy ``pack_windows``
@@ -16,11 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..compat import PAD_ID, resolve_device
+from ..compat import resolve_device
 from . import decode_attention as _dec
 from . import edge_spmv
 from . import flash_attention as _fa
-from . import segment_rf
+from . import packed_sort, segment_rf
 
 __all__ = [
     "chunk_vertex_counts_packed",
@@ -34,18 +35,18 @@ __all__ = [
 ]
 
 
-def packed_rows(edges: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def packed_rows(edges: torch.Tensor, mask: torch.Tensor, num_vertices: int | None = None) -> torch.Tensor:
     """The kernel's input for a pack: edges ``(k, E_max, 2)`` int32 and mask
     ``(k, E_max)`` f32 → ``(k, 2·E_max)`` int32 endpoint ids, each row sorted
-    ascending with the masked-out slots as ``PAD_ID`` at its tail."""
-    k, e_max, _ = edges.shape
-    ids = torch.where(mask[..., None] > 0, edges, PAD_ID).reshape(k, 2 * e_max)
-    return torch.sort(ids, dim=1).values
+    ascending with the masked-out slots as ``PAD_ID`` at its tail. Valid ids
+    lie in ``[0, num_vertices)`` (``None``: any id that is not negative)."""
+    return packed_sort.packed_sort(edges, mask, num_vertices)
 
 
-def chunk_vertex_counts_packed(edges: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def chunk_vertex_counts_packed(edges: torch.Tensor, mask: torch.Tensor,
+                               num_vertices: int | None = None) -> torch.Tensor:
     """|V(E_p)| of every row of a pack → ``(k,)`` int64, on the pack's device."""
-    return segment_rf.segment_distinct_counts(packed_rows(edges, mask)).to(torch.int64)
+    return segment_rf.segment_distinct_counts(packed_rows(edges, mask, num_vertices)).to(torch.int64)
 
 
 def replication_factor_kernel(

@@ -27,7 +27,7 @@ from repro_torch.core.graph import rmat_graph
 from repro_torch.elastic.rescale_exec import ElasticRescaler
 from repro_torch.graphs import engine as E
 from repro_torch.kernels import decode_attention as dec
-from repro_torch.kernels import edge_spmv, min_sweep, ops, ref, rescale_migrate, segment_rf
+from repro_torch.kernels import edge_spmv, min_sweep, ops, packed_sort, ref, rescale_migrate, segment_rf
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import multihost as MH
 from repro_torch.launch import sharding as SH
@@ -132,6 +132,59 @@ def test_rescale_on_cuda_rechecks_through_the_kernel(cuda, ordered):
     back, _ = ElasticRescaler().rescale(new, 8, verify=True, recheck=False)
     assert (segment_rf.launches, rescale_migrate.launches) == (before + 1, migrations + 2)
     assert torch.equal(back.edges, data.edges) and torch.equal(back.mask, data.mask)
+
+
+# ---------------------------------------------------------------- packed_sort
+# (k, E_max, num_vertices, layout): a row under one tile, a row of exactly one
+# tile (8,192 keys) and one past it, many short rows, every pass count (1 to
+# 4), ids at num_vertices - 1, a hub of one id, rows already sorted.
+SORT_CASES = [(3, 50, None, "random"), (2, 4096, 2**20, "random"), (3, 4097, 1, "random"), (5, 12_289, 2, "random"),
+              (130, 9, 513, "random"), (4, 40_000, 2**22, "hub"), (4, 40_000, 2**16, "sorted"),
+              (16, 200_000, 2**24, "top"), (3, 300_001, 2**31 - 1, "top"), (1, 1, 7, "random")]
+
+
+@pytest.mark.parametrize("k,e_max,nv,layout", SORT_CASES)
+def test_packed_sort_kernel_equals_torch_sort(cuda, k, e_max, nv, layout):
+    gen = torch.Generator(device=cuda).manual_seed(k + e_max)
+    hi = nv or 2**31 - 1
+    edges = torch.randint(0, hi, (k, e_max, 2), dtype=torch.int32, device=cuda, generator=gen)
+    if layout == "hub":
+        edges[:, : e_max // 2] = hi - 1
+    elif layout == "sorted":
+        edges = torch.sort(edges.reshape(k, -1), dim=1).values.reshape(k, e_max, 2).contiguous()
+    elif layout == "top":
+        edges[:, ::5, 1] = hi - 1
+    mask = (torch.rand((k, e_max), device=cuda, generator=gen) > 0.3).float()
+    mask[0, e_max // 3 : e_max // 2] = 0.0  # slots masked out in the middle of a row
+    if k > 2:
+        mask[2] = 0.0  # a row with no valid slot
+    launches, passes = packed_sort.launches, packed_sort.passes
+    got = ops.packed_rows(edges, mask, nv)
+    torch.cuda.synchronize()
+    assert (packed_sort.launches, packed_sort.passes) == (launches + 1, passes + packed_sort.digit_passes(nv))
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got, packed_sort.packed_sort_torch(edges, mask))
+
+
+def test_packed_sort_rejects_a_view_off_an_8_byte_boundary(cuda):
+    buf = torch.zeros(2 * 10 * 2 + 1, dtype=torch.int32, device=cuda)
+    edges = buf[1:].view(2, 10, 2)
+    with pytest.raises(ValueError):
+        packed_sort.packed_sort(edges, torch.ones((2, 10), device=cuda), 100)
+
+
+def test_recheck_sorts_through_the_kernel_in_its_passes(cuda, ordered):
+    """A re-checked rescale sorts its rows once on the card, in the passes its
+    vertex count needs, and counts them in ``rescale.recheck.sort_passes``."""
+    from repro_torch.obs import metrics as OM
+
+    g, s, d = ordered
+    data = E.pack_ordered(s, d, g.num_vertices, 8)
+    registry = OM.MetricsRegistry()
+    launches = packed_sort.launches
+    ElasticRescaler(metrics_registry=registry).rescale(data, 12)
+    assert packed_sort.launches == launches + 1
+    assert registry.snapshot()["rescale.recheck.sort_passes"] == packed_sort.digit_passes(g.num_vertices)
 
 
 # ------------------------------------------------------------ rescale_migrate

@@ -39,7 +39,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "repro_torch.obs.trace", "repro_torch.launch.sharding", "repro_torch.kernels.edge_spmv",
         "repro_torch.kernels.flash_attention", "repro_torch.kernels.decode_attention",
         "repro_torch.kernels.span_reorder", "repro_torch.kernels.full_reorder", "repro_torch.kernels.rescale_migrate",
-        "repro_torch.stream",
+        "repro_torch.kernels.packed_sort", "repro_torch.stream",
         "repro_torch.stream.updates", "repro_torch.stream.incremental", "repro_torch.stream.workload",
         "repro_torch.stream.ingest", "repro_torch.launch.mesh", "repro_torch.launch.multihost",
         "repro_torch.obs.metrics", "repro_torch.data", "repro_torch.data.shards", "repro_torch.data.pipeline",
@@ -98,7 +98,7 @@ def test_no_source_line_imports_jax_or_the_reference():
 def test_no_exception_handler_on_the_kernel_path():
     files = [PORT / "kernels" / n for n in ("_build.py", "segment_rf.py", "ops.py", "edge_spmv.py",
                                              "flash_attention.py", "decode_attention.py", "span_reorder.py",
-                                             "full_reorder.py", "rescale_migrate.py")]
+                                             "full_reorder.py", "rescale_migrate.py", "packed_sort.py")]
     files += sorted((PORT / "stream").glob("*.py")) + [PORT / "core" / "hier_order.py"]
     files += [PORT / "graphs" / "engine.py", PORT / "elastic" / "rescale_exec.py", ROOT / "chip_smoke.py"]
     files += sorted((PORT / "models").glob("*.py")) + [ROOT / "tests" / "torch_lm_harness.py"]

@@ -162,6 +162,18 @@ def test_trace_span_and_metrics_recorded(ordered):
     assert ElasticRescaler().tracer is OT.get_tracer() and not OT.get_tracer().enabled
 
 
+def test_recheck_counts_no_sort_pass_on_the_cpu(ordered):
+    """The re-check's sort passes are counted where the kernel runs; the CPU's
+    plain version runs none."""
+    jg, src, dst = ordered
+    data = E.pack_ordered(src, dst, jg.num_vertices, 8, device="cpu")
+    registry = OM.MetricsRegistry()
+    ElasticRescaler(metrics_registry=registry).rescale(data, 12)
+    assert registry.snapshot()["rescale.recheck.sort_passes"] == 0.0
+    ElasticRescaler(metrics_registry=registry).rescale(data, 12, recheck=False)
+    assert registry.snapshot()["rescale.recheck.sort_passes"] == 0.0
+
+
 def test_recheck_measures_counts_through_the_segment_rf_wrapper(ordered, monkeypatch):
     jg, src, dst = ordered
     data = E.pack_ordered(src, dst, jg.num_vertices, 8, device="cpu")
